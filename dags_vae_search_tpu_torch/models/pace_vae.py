@@ -1,0 +1,304 @@
+"""PACE transformer DAG-VAE (torch).
+
+Counterpart of ``dags_vae_search_tpu/models/pace_vae.py``, with the same math
+and parameter names:
+
+  label embed Linear(L, E) + ReLU, concatenated with the GNN positional
+  encoding (E) -> d_model = 2E; post-LN transformer encoder (mask =
+  ancestors + self) -> flatten -> fc1/fc2 = mu/logvar; fc3(z) -> decoder
+  memory [N, d]; teacher-forced post-LN decoder -> add_node / add_edge
+  heads; loss = node NLL + edge BCE (sums) + beta * KL.
+
+Slot-indexed DAGs have the identity as topological order, so the position
+one-hot is a constant eye and the positional input is ``[I ‖ A^T]``.
+Dropout and the reparameterization noise are active in ``train()`` mode
+only.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from dags_vae_search_tpu_torch.graphs.dag import NUM_VIRTUAL, attention_allowed, pace_wrap
+from dags_vae_search_tpu_torch.models.transformer import (
+    Decoder,
+    Dense,
+    Encoder,
+    round_operand,
+)
+
+
+class PaceVAE(nn.Module):
+    """The DAG-VAE over ``num_real_vertices``-node labeled DAGs; virtual
+    vertices and labels (+3) are handled internally.  The asia flagship
+    (8, 8, embed=32, heads=8, layers=3, latent=32, fc_hidden=32) has 284,556
+    parameters."""
+
+    def __init__(
+        self,
+        num_real_vertices: int,
+        real_label_cardinality: int,
+        embed_size: int = 32,
+        num_heads: int = 8,
+        num_layers: int = 3,
+        latent_size: int = 32,
+        fc_hidden: int = 32,
+        dropout: float = 0.15,
+        beta: float = 0.005,
+        epsilon_scale: float = 0.01,
+        loss_variant: str = "v3",
+        edge_readout: bool = False,
+        edge_readout_rank: int = 0,
+        matmul_dtype: Optional[str] = None,
+    ):
+        super().__init__()
+        self.num_real_vertices = num_real_vertices
+        self.real_label_cardinality = real_label_cardinality
+        self.embed_size = embed_size
+        self.latent_size = latent_size
+        self.dropout = dropout
+        self.beta = beta
+        self.epsilon_scale = epsilon_scale
+        # 'v3' = BCE with logits; 'v1' = BCE on sigmoid probabilities with
+        # the log clamped at -100
+        self.loss_variant = loss_variant
+        self.edge_readout = edge_readout
+        self.edge_readout_rank = edge_readout_rank
+        self.matmul_dtype = matmul_dtype
+
+        n, d, md = self.max_n, self.d_model, matmul_dtype
+        self.pos_w1 = nn.Parameter(torch.empty(2 * n, 2 * embed_size))
+        self.pos_w2 = nn.Parameter(torch.empty(2 * embed_size, embed_size))
+        self.label_embed = Dense(self.cardinality, embed_size, md)
+        self.encoder = Encoder(d, num_layers, num_heads, dropout, md)
+        self.fc1 = Dense(n * d, latent_size, md)
+        self.fc2 = Dense(n * d, latent_size, md)
+        self.fc3 = Dense(latent_size, n * d, md)
+        self.decoder = Decoder(d, num_layers, num_heads, dropout, md)
+        self.add_node_hidden = Dense(d, fc_hidden, md)
+        self.add_node_out = Dense(fc_hidden, self.cardinality, md)
+        self.add_edge_hidden = Dense(2 * d, d, md)
+        self.add_edge_out = Dense(d, 1, md)
+        if edge_readout:
+            if edge_readout_rank > 0:
+                r = edge_readout_rank
+                self.edge_readout_u = Dense(latent_size, (n - 1) * r, md)
+                self.edge_readout_v = Dense(latent_size, (n - 1) * r, md)
+            else:
+                self.edge_readout_fc = Dense(latent_size, (n - 1) * (n - 1), md)
+        self.reset_parameters()
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        """Re-draw every parameter: positional weights xavier-uniform with
+        gain sqrt(2), Dense layers torch's default, LayerNorms ones/zeros."""
+        with torch.no_grad():
+            for w in (self.pos_w1, self.pos_w2):
+                bound = math.sqrt(2.0) * math.sqrt(6.0 / (w.shape[0] + w.shape[1]))
+                w.uniform_(-bound, bound, generator=generator)
+            for module in self.modules():
+                if isinstance(module, Dense):
+                    module.reset_parameters(generator)
+                elif isinstance(module, nn.LayerNorm):
+                    module.reset_parameters()
+
+    @property
+    def max_n(self) -> int:
+        return self.num_real_vertices + NUM_VIRTUAL
+
+    @property
+    def cardinality(self) -> int:
+        return self.real_label_cardinality + NUM_VIRTUAL
+
+    @property
+    def d_model(self) -> int:
+        return 2 * self.embed_size
+
+    # ---------------------------------------------------------------- utils
+
+    def _drop(self, x: torch.Tensor) -> torch.Tensor:
+        return F.dropout(x, self.dropout, self.training)
+
+    def _pos_encoding(self, adj: torch.Tensor) -> torch.Tensor:
+        """[I ‖ A^T] -> relu(. W1) -> dropout -> . W2 -> dropout; [B, N, E]."""
+        b, n, _ = adj.shape
+        eye = torch.eye(n, dtype=adj.dtype, device=adj.device).expand(b, n, n)
+        x = torch.cat([eye, adj.transpose(-1, -2)], dim=-1)
+        md = self.matmul_dtype
+        h = self._drop(F.relu(round_operand(x, md) @ round_operand(self.pos_w1, md)))
+        return self._drop(round_operand(h, md) @ round_operand(self.pos_w2, md))
+
+    def _vertex_features(self, labels: torch.Tensor, adj: torch.Tensor) -> torch.Tensor:
+        """concat(label embedding, positional embedding) -> [B, N, d_model]."""
+        card = torch.arange(self.cardinality, device=labels.device)
+        labels_1h = (labels[..., None] == card).to(torch.float32)
+        emb = F.relu(self.label_embed(labels_1h))
+        return torch.cat([emb, self._pos_encoding(adj)], dim=-1)
+
+    def _add_node(self, h: torch.Tensor) -> torch.Tensor:
+        return self.add_node_out(F.relu(self.add_node_hidden(h)))
+
+    def _add_edge(self, h: torch.Tensor) -> torch.Tensor:
+        return self.add_edge_out(F.relu(self.add_edge_hidden(h)))
+
+    def _edge_bias(self, z: torch.Tensor, n: int) -> torch.Tensor:
+        """z -> per-pair edge-logit bias [B, n-1, n-1] (row i = child slot,
+        column j = parent slot, loss-pair indexing)."""
+        if self.edge_readout_rank > 0:
+            r = self.edge_readout_rank
+            u = self.edge_readout_u(z).reshape(-1, n - 1, r)
+            v = self.edge_readout_v(z).reshape(-1, n - 1, r)
+            md = self.matmul_dtype
+            return (round_operand(u, md) @ round_operand(v, md).transpose(1, 2)) / (r**0.5)
+        return self.edge_readout_fc(z).reshape(-1, n - 1, n - 1)
+
+    def _edge_bias_row(self, z: torch.Tensor, n: int, i: int) -> torch.Tensor:
+        """Row ``i`` of :meth:`_edge_bias`, [B, n-1]."""
+        if self.edge_readout_rank > 0:
+            r = self.edge_readout_rank
+            u_row = self.edge_readout_u(z).reshape(-1, n - 1, r)[:, i]
+            v = self.edge_readout_v(z).reshape(-1, n - 1, r)
+            md = self.matmul_dtype
+            return (round_operand(v, md) @ round_operand(u_row, md)[..., None])[..., 0] / (
+                r**0.5
+            )
+        return self.edge_readout_fc(z).reshape(-1, n - 1, n - 1)[:, i]
+
+    # ------------------------------------------------------------- encoding
+
+    def encode_wrapped(
+        self, labels: torch.Tensor, adj: torch.Tensor, allowed: Optional[torch.Tensor] = None
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(mu, logvar) from PACE-wrapped tensors."""
+        if allowed is None:
+            allowed = attention_allowed(adj)
+        memory = self.encoder(self._vertex_features(labels, adj), allowed)
+        flat = memory.reshape(memory.shape[0], self.max_n * self.d_model)
+        return self.fc1(flat), self.fc2(flat)
+
+    def encode(self, labels: torch.Tensor, adj: torch.Tensor):
+        """(mu, logvar) from labeled (real-vertex) tensors."""
+        wrapped = pace_wrap(labels, adj)
+        return self.encode_wrapped(wrapped.labels, wrapped.adj)
+
+    def reparameterize(
+        self, mu: torch.Tensor, logvar: torch.Tensor,
+        generator: Optional[torch.Generator] = None,
+    ) -> torch.Tensor:
+        """``mu`` in eval mode; ``mu + eps_scale * N(0, 1) * std`` in train mode."""
+        if not self.training:
+            return mu
+        std = torch.exp(0.5 * logvar)
+        eps = torch.randn(mu.shape, generator=generator, device=mu.device) * self.epsilon_scale
+        return mu + eps * std
+
+    # ------------------------------------------------------------- decoding
+
+    def decoder_output(
+        self, z: torch.Tensor, labels: torch.Tensor, adj: torch.Tensor, allowed: torch.Tensor
+    ) -> torch.Tensor:
+        """Teacher-forced decoder hidden states [B, N, d] for PACE tensors."""
+        memory = self.fc3(z).reshape(z.shape[0], self.max_n, self.d_model)
+        return self.decoder(self._vertex_features(labels, adj), memory, allowed)
+
+    def decode_step(
+        self,
+        z: torch.Tensor,
+        labels: torch.Tensor,  # int32[B, N] current PACE labels (pad=OUTPUT)
+        adj: torch.Tensor,  # float32[B, N, N] current PACE adjacency
+        allowed: torch.Tensor,  # bool[B, N, N] attention mask for this step
+        idx: int,  # slot being generated (2..N-1)
+    ):
+        """One sampling-decode step: (type logits [B, L], parent-edge probs
+        [B, N] indexed by parent slot)."""
+        out = self.decoder_output(z, labels, adj, allowed)
+        h_new = out[:, idx - 1]
+        type_logits = self._add_node(h_new)  # [B, L]
+
+        # Parent slot p pairs h_new with hidden out[p-1].
+        parent_hidden = torch.roll(out, 1, dims=1)
+        pair = torch.cat([h_new[:, None, :].expand_as(parent_hidden), parent_hidden], dim=-1)
+        edge_logits = self._add_edge(pair)[..., 0]  # [B, N]
+        if self.edge_readout:
+            n = labels.shape[-1]
+            # loss pair (i, j) = (slot idx - 1, parent slot p - 1): row
+            # i = idx-1, shifted one slot right so position p reads [i, p-1]
+            row = F.pad(self._edge_bias_row(z, n, idx - 1), (0, 1))
+            edge_logits = edge_logits + torch.roll(row, 1, dims=-1)
+        return type_logits, torch.sigmoid(edge_logits)
+
+    # ----------------------------------------------------------------- loss
+
+    def loss_wrapped(
+        self,
+        labels: torch.Tensor,
+        adj: torch.Tensor,
+        allowed: Optional[torch.Tensor] = None,
+        generator: Optional[torch.Generator] = None,
+    ):
+        """(total, recon_nll, kld) on PACE-wrapped tensors, summed over the
+        batch."""
+        if allowed is None:
+            allowed = attention_allowed(adj)
+        n = labels.shape[1]
+        mu, logvar = self.encode_wrapped(labels, adj, allowed)
+        z = self.reparameterize(mu, logvar, generator)
+        out = self.decoder_output(z, labels, adj, allowed)
+
+        # Node NLL: position t predicts the label of vertex t+1, t < n-1.
+        node_logp = torch.log_softmax(self._add_node(out), dim=-1)
+        card = torch.arange(self.cardinality, device=labels.device)
+        targets = (labels[:, 1:, None] == card).to(torch.float32)
+        node_ll = (node_logp[:, : n - 1, :] * targets).sum()
+
+        # Edge BCE over static pairs (i > j, both < n-1): logit from
+        # [out_i ‖ out_j], target adj[j+1, i+1].
+        pi, pj = (torch.as_tensor(a, device=labels.device) for a in np.tril_indices(n - 1, k=-1))
+        logits = self._add_edge(torch.cat([out[:, pi, :], out[:, pj, :]], dim=-1))[..., 0]
+        if self.edge_readout:
+            logits = logits + self._edge_bias(z, n)[:, pi, pj]
+        edge_targets = adj[:, pj + 1, pi + 1]
+        if self.loss_variant == "v1":
+            probs = torch.sigmoid(logits)
+            log_p = torch.clamp(torch.log(probs), min=-100.0)
+            log_1p = torch.clamp(torch.log(1.0 - probs), min=-100.0)
+            edge_ll = (edge_targets * log_p + (1.0 - edge_targets) * log_1p).sum()
+        else:
+            edge_ll = (
+                edge_targets * F.logsigmoid(logits)
+                + (1.0 - edge_targets) * F.logsigmoid(-logits)
+            ).sum()
+
+        log_likelihood = node_ll + edge_ll
+        kld = -0.5 * torch.sum(1.0 + logvar - mu**2 - torch.exp(logvar))
+        return -log_likelihood + self.beta * kld, -log_likelihood, kld
+
+    def loss(self, labels: torch.Tensor, adj: torch.Tensor,
+             generator: Optional[torch.Generator] = None):
+        """(total, recon_nll, kld) from labeled (real-vertex) tensors."""
+        wrapped = pace_wrap(labels, adj)
+        return self.loss_wrapped(wrapped.labels, wrapped.adj, generator=generator)
+
+    def forward(self, labels: torch.Tensor, adj: torch.Tensor):
+        return self.loss(labels, adj)
+
+
+def make_model(seed: int = 0, device="cuda", **kwargs) -> PaceVAE:
+    """A ``PaceVAE(**kwargs)`` with weights drawn from ``seed``, on ``device``."""
+    model = PaceVAE(**kwargs)
+    model.reset_parameters(torch.Generator().manual_seed(seed))
+    return model.to(device)
+
+
+def make_asia_model(seed: int = 0, device="cuda") -> PaceVAE:
+    """The flagship config (8 vertices, 8 labels, defaults elsewhere)."""
+    return make_model(seed, device, num_real_vertices=8, real_label_cardinality=8)
+
+
+def num_parameters(model: nn.Module) -> int:
+    return sum(p.numel() for p in model.parameters())

@@ -1,0 +1,183 @@
+"""Masked post-LN transformer primitives for the PACE DAG-VAE (torch).
+
+Counterpart of ``dags_vae_search_tpu/models/transformer.py``: post-layer-norm
+residual blocks, multi-head attention with a boolean *allow* mask
+(True = may attend), a ReLU FFN whose hidden width equals the model width,
+and dropout on attention weights, residuals and the FFN hidden.  Layouts are
+batch-first ([B, N, D]).  Submodules carry the flax names, so
+``convert.flax_to_state_dict`` maps parameters one to one.
+
+The decoder's cross-attention takes the same allow mask as its
+self-attention (the reference decoder passes the target mask to both).
+
+Dropout is active in ``train()`` mode and off in ``eval()`` mode.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+class Dense(nn.Linear):
+    """Linear layer with torch's default init (U(±1/sqrt(fan_in)) for weight
+    and bias).
+
+    ``matmul_dtype`` (e.g. ``"bfloat16"``) rounds the product's OPERANDS to
+    that type; the product itself is taken in float32, so it equals the JAX
+    package's bf16 operands with float32 accumulation.  Params stay float32.
+    """
+
+    def __init__(self, in_features: int, out_features: int, matmul_dtype: Optional[str] = None):
+        super().__init__(in_features, out_features)
+        self.matmul_dtype = matmul_dtype
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        bound = 1.0 / math.sqrt(self.in_features)
+        with torch.no_grad():
+            self.weight.uniform_(-bound, bound, generator=generator)
+            self.bias.uniform_(-bound, bound, generator=generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(
+            round_operand(x, self.matmul_dtype),
+            round_operand(self.weight, self.matmul_dtype),
+            self.bias,
+        )
+
+
+def round_operand(x: torch.Tensor, matmul_dtype: Optional[str]) -> torch.Tensor:
+    """``x`` rounded to ``matmul_dtype`` and back to float32 (no-op if None)."""
+    if matmul_dtype is None:
+        return x
+    return x.to(getattr(torch, matmul_dtype)).to(torch.float32)
+
+
+class MultiHeadAttention(nn.Module):
+    """softmax(q k^T / sqrt(d_head), blocked logits at -1e30), dropout on the
+    weights, then the out-projection.  Separate q/k/v/out projections."""
+
+    def __init__(self, d_model: int, num_heads: int, dropout: float,
+                 matmul_dtype: Optional[str] = None):
+        super().__init__()
+        if d_model % num_heads:
+            raise ValueError("d_model must divide num_heads")
+        self.num_heads = num_heads
+        self.dropout = dropout
+        self.matmul_dtype = matmul_dtype
+        self.q_proj = Dense(d_model, d_model, matmul_dtype)
+        self.k_proj = Dense(d_model, d_model, matmul_dtype)
+        self.v_proj = Dense(d_model, d_model, matmul_dtype)
+        self.out_proj = Dense(d_model, d_model, matmul_dtype)
+
+    def forward(
+        self,
+        query: torch.Tensor,  # [B, Nq, D]
+        key: torch.Tensor,  # [B, Nk, D]
+        value: torch.Tensor,  # [B, Nk, D]
+        allowed: Optional[torch.Tensor] = None,  # bool[B, Nq, Nk] or [Nq, Nk]
+    ) -> torch.Tensor:
+        b, nq, d_model = query.shape
+        d_head = d_model // self.num_heads
+        md = self.matmul_dtype
+
+        def split(x):
+            return x.reshape(b, -1, self.num_heads, d_head).transpose(1, 2)
+
+        q = split(self.q_proj(query))  # [B, H, N, d_head]
+        k = split(self.k_proj(key))
+        v = split(self.v_proj(value))
+        logits = (round_operand(q, md) @ round_operand(k, md).transpose(-1, -2)) / (
+            d_head**0.5
+        )
+        if allowed is not None:
+            if allowed.dim() == 2:
+                allowed = allowed[None]
+            logits = logits.masked_fill(~allowed[:, None, :, :], -1e30)
+        weights = F.dropout(torch.softmax(logits, dim=-1), self.dropout, self.training)
+        out = round_operand(weights, md) @ round_operand(v, md)
+        return self.out_proj(out.transpose(1, 2).reshape(b, nq, d_model))
+
+
+class EncoderLayer(nn.Module):
+    """Post-LN encoder block: self-attention, FFN."""
+
+    def __init__(self, d_model: int, num_heads: int, dropout: float,
+                 matmul_dtype: Optional[str] = None):
+        super().__init__()
+        self.dropout = dropout
+        self.self_attn = MultiHeadAttention(d_model, num_heads, dropout, matmul_dtype)
+        self.norm1 = nn.LayerNorm(d_model, eps=1e-5)
+        self.linear1 = Dense(d_model, d_model, matmul_dtype)
+        self.linear2 = Dense(d_model, d_model, matmul_dtype)
+        self.norm2 = nn.LayerNorm(d_model, eps=1e-5)
+
+    def _drop(self, x):
+        return F.dropout(x, self.dropout, self.training)
+
+    def forward(self, src, allowed=None):
+        src = self.norm1(src + self._drop(self.self_attn(src, src, src, allowed)))
+        ff = self.linear2(self._drop(F.relu(self.linear1(src))))
+        return self.norm2(src + self._drop(ff))
+
+
+class DecoderLayer(nn.Module):
+    """Post-LN decoder block: self-attention, cross-attention (same allow
+    mask), FFN."""
+
+    def __init__(self, d_model: int, num_heads: int, dropout: float,
+                 matmul_dtype: Optional[str] = None):
+        super().__init__()
+        self.dropout = dropout
+        self.self_attn = MultiHeadAttention(d_model, num_heads, dropout, matmul_dtype)
+        self.norm1 = nn.LayerNorm(d_model, eps=1e-5)
+        self.cross_attn = MultiHeadAttention(d_model, num_heads, dropout, matmul_dtype)
+        self.norm2 = nn.LayerNorm(d_model, eps=1e-5)
+        self.linear1 = Dense(d_model, d_model, matmul_dtype)
+        self.linear2 = Dense(d_model, d_model, matmul_dtype)
+        self.norm3 = nn.LayerNorm(d_model, eps=1e-5)
+
+    def _drop(self, x):
+        return F.dropout(x, self.dropout, self.training)
+
+    def forward(self, tgt, memory, allowed=None):
+        tgt = self.norm1(tgt + self._drop(self.self_attn(tgt, tgt, tgt, allowed)))
+        tgt = self.norm2(tgt + self._drop(self.cross_attn(tgt, memory, memory, allowed)))
+        ff = self.linear2(self._drop(F.relu(self.linear1(tgt))))
+        return self.norm3(tgt + self._drop(ff))
+
+
+class Encoder(nn.Module):
+    """``num_layers`` encoder blocks named ``layer0``, ``layer1``, ..."""
+
+    def __init__(self, d_model: int, num_layers: int, num_heads: int, dropout: float,
+                 matmul_dtype: Optional[str] = None):
+        super().__init__()
+        self.num_layers = num_layers
+        for i in range(num_layers):
+            self.add_module(f"layer{i}", EncoderLayer(d_model, num_heads, dropout, matmul_dtype))
+
+    def forward(self, src, allowed=None):
+        for i in range(self.num_layers):
+            src = getattr(self, f"layer{i}")(src, allowed)
+        return src
+
+
+class Decoder(nn.Module):
+    """``num_layers`` decoder blocks named ``layer0``, ``layer1``, ..."""
+
+    def __init__(self, d_model: int, num_layers: int, num_heads: int, dropout: float,
+                 matmul_dtype: Optional[str] = None):
+        super().__init__()
+        self.num_layers = num_layers
+        for i in range(num_layers):
+            self.add_module(f"layer{i}", DecoderLayer(d_model, num_heads, dropout, matmul_dtype))
+
+    def forward(self, tgt, memory, allowed=None):
+        for i in range(self.num_layers):
+            tgt = getattr(self, f"layer{i}")(tgt, memory, allowed)
+        return tgt

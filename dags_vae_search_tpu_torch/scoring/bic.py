@@ -1,0 +1,208 @@
+"""Public scoring API: ``BicScorer`` bound to one discrete dataset.
+
+Counterpart of ``dags_vae_search_tpu/scoring/bic.py``.  The scorer keeps
+the coded dataset on its device and scores whole batches of adjacency
+tensors per call.  A candidate's vertex labels index the dataset columns,
+so ``score_labeled`` permutes each graph into column space first.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from dags_vae_search_tpu_torch.ops import bic_kernel, bic_torch
+from dags_vae_search_tpu_torch.scoring.datasets import DiscreteDataset
+
+
+def one_hot(labels: torch.Tensor, n: int, dtype=torch.float32) -> torch.Tensor:
+    """``[..., n]`` one-hot rows; a label outside ``[0, n)`` gives a zero row
+    (``jax.nn.one_hot`` semantics — ``torch.nn.functional.one_hot`` raises)."""
+    return (labels[..., None] == torch.arange(n, device=labels.device)).to(dtype)
+
+
+def relabel_to_columns(labels: torch.Tensor, adj: torch.Tensor) -> torch.Tensor:
+    """Permute adjacency so the vertex with label L lands at row/col L:
+    ``adj'[b, labels[v], labels[w]] = adj[b, v, w]``.  Out-of-range labels
+    (invalid decodes) drop their vertex, as in the JAX package."""
+    perm = one_hot(labels, adj.shape[-1], adj.dtype)  # [B, n, n], P[v, L]
+    # adj' = P^T adj P; sums of 0/1 products are exact even in TF32
+    return perm.transpose(1, 2) @ adj @ perm
+
+
+class BicScorer:
+    """Batched decomposable-score evaluator bound to one discrete dataset.
+
+    Parameters
+    ----------
+    dataset: integer-coded discrete data (see ``scoring.datasets``).
+    metric: 'bic' | 'aic' | 'loglik' | 'bde'.
+    max_parents: in-degree cap (None = only the q_cap feasibility bound).
+    q_cap: static parent-configuration cap; defaults to
+      ``r_max ** min(max_parents, n-1)`` capped at 4096.
+    impl: 'auto' ('kernel' on CUDA, 'plain' elsewhere), 'kernel' (unique
+      rows through ``ops.bic_kernel``, whose wrapper runs its plain version
+      on CPU tensors) or 'plain' (all cases through ``ops.bic_torch``).
+    device: where the dataset lives and scoring runs.
+    """
+
+    def __init__(
+        self,
+        dataset: DiscreteDataset,
+        metric: str = "bic",
+        max_parents: Optional[int] = None,
+        q_cap: Optional[int] = None,
+        impl: str = "auto",
+        device="cuda",
+    ):
+        self.dataset = dataset
+        self.metric = metric
+        self.max_parents = max_parents
+        self.device = torch.device(device)
+        n = dataset.num_variables
+        self.r_max = int(dataset.cards.max())
+        if q_cap is None:
+            p = n - 1 if max_parents is None else min(max_parents, n - 1)
+            q_cap = min(int(self.r_max**p), 4096)
+        self.q_cap = int(q_cap)
+        if impl == "auto":
+            impl = "kernel" if self.device.type == "cuda" else "plain"
+        if impl not in ("kernel", "plain"):
+            raise ValueError(f"unknown impl {impl!r}")
+        self.impl = impl
+
+        self._codes = torch.as_tensor(dataset.codes, dtype=torch.int32, device=self.device)
+        self._cards = torch.as_tensor(dataset.cards, dtype=torch.int32, device=self.device)
+        # Unique-row compression: contingency work scales with the number of
+        # distinct dataset rows (<= prod cards).
+        codes_u, weights = np.unique(dataset.codes, axis=0, return_counts=True)
+        self.num_unique_rows = codes_u.shape[0]
+        self._codes_u = torch.as_tensor(codes_u, dtype=torch.int32, device=self.device)
+        self._weights = torch.as_tensor(weights, dtype=torch.float32, device=self.device)
+
+    def _adj(self, adj) -> torch.Tensor:
+        return torch.as_tensor(adj, dtype=torch.float32, device=self.device)
+
+    def counts(self, adj) -> tuple:
+        """Exact contingency counts float32[B, n, q_cap, r_max] and config
+        sizes q float32[B, n], by this scorer's ``impl``."""
+        adj = self._adj(adj)
+        if self.impl == "kernel":
+            return bic_kernel.contingency_counts(
+                adj, self._codes_u, self._weights, self._cards, self.q_cap, self.r_max
+            )
+        return bic_torch.contingency_counts(
+            adj, self._codes, self._cards, self.q_cap, self.r_max
+        )
+
+    def _node_scores(self, adj: torch.Tensor) -> tuple:
+        counts, q = self.counts(adj)
+        node_scores = bic_torch.node_scores_from_counts(
+            counts, q, self._cards, self.dataset.num_cases, self.metric
+        )
+        return node_scores, q
+
+    def score_nodes(self, adj) -> torch.Tensor:
+        """Per-node decomposable scores float32[B, n], no feasibility mask."""
+        return self._node_scores(self._adj(adj))[0]
+
+    def score(self, adj) -> torch.Tensor:
+        """Score candidate structures. adj: float[B, n, n] -> float32[B].
+
+        All float32 on the device: absolute error ~1e-3 on |BIC| ~ 1e4,
+        far below what ranking candidates needs.
+        """
+        adj = self._adj(adj)
+        node_scores, q = self._node_scores(adj)
+        feasible = bic_torch.feasible_mask(adj, q, self.q_cap, self.max_parents)
+        return torch.where(feasible, node_scores.sum(-1), -torch.inf)
+
+    def score_exact(self, adj, chunk: int = 1024) -> np.ndarray:
+        """Exact device counts and a float64 host entropy: R bnlearn's
+        ``score(type=...)`` to ~1e-9 relative.  Feasibility as in
+        :meth:`score`."""
+        adj = self._adj(adj)
+        out = []
+        for start in range(0, adj.shape[0], chunk):
+            block = adj[start : start + chunk]
+            counts, q = self.counts(block)
+            scores = bic_torch.score_from_counts_np(
+                counts.cpu().numpy(), q.cpu().numpy(), self.dataset.cards,
+                self.dataset.num_cases, self.metric,
+            )
+            feasible = bic_torch.feasible_mask(block, q, self.q_cap, self.max_parents)
+            out.append(np.where(feasible.cpu().numpy(), scores, -np.inf))
+        return np.concatenate(out)
+
+    def score_exact_sparse(self, adj: np.ndarray) -> np.ndarray:
+        """Cap-free exact scoring on the host: float64, any in-degree.
+
+        The log-likelihood runs over observed parent configurations only
+        (``np.unique`` group-by), while the BIC/AIC penalty uses the analytic
+        ``q = prod(parent cards)``, as R bnlearn does.
+        """
+        adj = np.asarray(adj)
+        codes = np.asarray(self.dataset.codes)
+        cards_i = np.asarray(self.dataset.cards, dtype=np.int64)
+        cards = cards_i.astype(np.float64)
+        num_cases = self.dataset.num_cases
+        half_log_n = np.log(float(num_cases)) / 2.0
+
+        def group_counts(cols: np.ndarray) -> np.ndarray:
+            """Row-group sizes of codes[:, cols]: one int64 mixed-radix key
+            when the radix product fits, else numpy's row-wise unique."""
+            sub = codes[:, cols]
+            radix = cards_i[cols]
+            if np.prod(radix.astype(np.float64)) < 2**62:
+                key = np.zeros(sub.shape[0], dtype=np.int64)
+                for c in range(sub.shape[1]):
+                    key = key * radix[c] + sub[:, c]
+                return np.unique(key, return_counts=True)[1]
+            return np.unique(sub, axis=0, return_counts=True)[1]
+
+        out = np.zeros(adj.shape[0], dtype=np.float64)
+        for b in range(adj.shape[0]):
+            total = 0.0
+            for i in range(adj.shape[-1]):
+                parents = np.flatnonzero(adj[b, :, i] > 0)
+                n_jk = group_counts(np.concatenate([parents, [i]]).astype(np.int64))
+                if parents.size:
+                    n_j = group_counts(parents.astype(np.int64))
+                else:
+                    n_j = np.asarray([num_cases])
+                n_jk = n_jk.astype(np.float64)
+                n_j = n_j.astype(np.float64)
+                ll = float((n_jk * np.log(n_jk)).sum() - (n_j * np.log(n_j)).sum())
+                q = float(np.prod(cards[parents])) if parents.size else 1.0
+                df = (cards[i] - 1.0) * q
+                if self.metric == "bic":
+                    total += ll - df * half_log_n
+                elif self.metric == "aic":
+                    total += ll - df
+                elif self.metric == "loglik":
+                    total += ll
+                elif self.metric == "bde":
+                    from scipy.special import gammaln
+
+                    iss = 1.0
+                    a_jk = iss / (q * cards[i])
+                    a_j = iss / q
+                    total += float(
+                        (gammaln(a_jk + n_jk) - gammaln(a_jk)).sum()
+                        + (gammaln(a_j) - gammaln(a_j + n_j)).sum()
+                    )
+                else:
+                    raise ValueError(f"unknown metric {self.metric!r}")
+            out[b] = total
+        return out
+
+    def score_labeled(self, labels, adj) -> torch.Tensor:
+        """Score label-indexed graphs (vertex label = dataset column)."""
+        labels = torch.as_tensor(labels, device=self.device)
+        return self.score(relabel_to_columns(labels, self._adj(adj)))
+
+    def score_one(self, adj: np.ndarray) -> float:
+        """Scalar scorer for one [n, n] adjacency."""
+        return float(self.score(self._adj(adj)[None])[0])

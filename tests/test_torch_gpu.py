@@ -1,0 +1,97 @@
+"""Card tests: the CUDA contingency kernel against its plain version, and the
+port on the card against the port on the CPU.
+
+Every test here needs a CUDA card and skips without one; whether there is a
+card is decided inside the ``cuda`` fixture, never at import.  On the card:
+``python -m pytest -m gpu tests/test_torch_gpu.py``.
+
+Counts are integer sums below 2^24, exact in float32 in any atomic order,
+so kernel and plain version must agree bit for bit.  Scores sum the same
+cells in another order on the card: rtol 1e-5.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from dags_vae_search_tpu_torch.graphs import sampler
+from dags_vae_search_tpu_torch.models import decode, pace_vae
+from dags_vae_search_tpu_torch.ops import bic_kernel
+from dags_vae_search_tpu_torch.scoring.bic import BicScorer
+from dags_vae_search_tpu_torch.scoring.catalog import make_synthetic_problem
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+def _inputs(R, U, S, seed=0):
+    rng = np.random.default_rng(seed)
+    seg = rng.integers(-2, S + 3, size=(R, U)).astype(np.int32)
+    seg[:, U - min(U, 7):] = S  # padding sentinel rows
+    w = rng.integers(0, 50, size=U).astype(np.float32)
+    return torch.as_tensor(w), torch.as_tensor(seg)
+
+
+@pytest.mark.parametrize(
+    "R,U,S",
+    [
+        (2 * 37, 4973, 512),  # the alarm search shape, two candidates
+        (5, 257, 8),  # U not a multiple of the block
+        (3, 1000, 16_384),  # 64 KB of bins: dynamic shared memory above 48 KB
+        (2, 300, 58_112),  # the most bins a block can hold (227 KB)
+        (1, 1, 1),
+    ],
+)
+def test_kernel_equals_plain_version(cuda, R, U, S):
+    w, seg = _inputs(R, U, S)
+    want = bic_kernel.contingency_counts_plain(w, seg, S)
+    before = bic_kernel.contingency_counts_kernel.launches
+    got = bic_kernel.contingency_counts_kernel(w.to(cuda), seg.to(cuda), S)
+    torch.cuda.synchronize()
+    assert bic_kernel.contingency_counts_kernel.launches == before + 1
+    assert torch.equal(got.cpu(), want)
+
+
+def test_kernel_wrapper_rejects_what_it_cannot_take(cuda):
+    w, seg = _inputs(4, 64, 16)
+    with pytest.raises(ValueError, match="contiguous"):
+        bic_kernel.contingency_counts_kernel(w.to(cuda), seg.to(cuda).T.contiguous().T, 16)
+    with pytest.raises(ValueError, match="on"):
+        bic_kernel.contingency_counts_kernel(w, seg.to(cuda), 16)
+
+
+@pytest.mark.parametrize("name", ["asia", "alarm"])
+def test_card_scorer_counts_equal_cpu(cuda, name):
+    _, ds = make_synthetic_problem(name)
+    n = ds.num_variables
+    _, adj = sampler.sample_er_batch(
+        np.random.default_rng(1), 32, n, 2 * n, n, require_connected=False, max_in_degree=8
+    )
+    card = BicScorer(ds, max_parents=8, device=cuda)
+    cpu = BicScorer(ds, max_parents=8, device="cpu", impl="plain")
+    assert card.impl == "kernel"
+    c_card, q_card = card.counts(adj)
+    c_cpu, q_cpu = cpu.counts(adj)
+    assert torch.equal(c_card.cpu(), c_cpu) and torch.equal(q_card.cpu(), q_cpu)
+    torch.testing.assert_close(card.score(adj).cpu(), cpu.score(adj), rtol=1e-5, atol=0.0)
+    np.testing.assert_allclose(card.score_exact(adj), cpu.score_exact(adj), rtol=1e-9)
+
+
+def test_decode_on_card_keeps_its_invariants(cuda):
+    kwargs = dict(num_real_vertices=7, real_label_cardinality=7, embed_size=16, num_heads=4,
+                  num_layers=2, latent_size=16, fc_hidden=16, edge_readout=True)
+    model = pace_vae.make_model(0, cuda, **kwargs)
+    z = torch.randn(256, 16, device=cuda, generator=torch.Generator(cuda).manual_seed(0))
+    rec, valid = decode.decode_to_labeled(
+        model, z, torch.Generator(cuda).manual_seed(1), max_in_degree=3
+    )
+    assert valid.all()
+    assert (torch.sort(rec.labels, dim=-1).values == torch.arange(7, device=cuda)).all()
+    assert int(rec.adj.sum(dim=1).max()) <= 3
+    assert torch.equal(rec.adj, torch.triu(rec.adj, diagonal=1))

@@ -1,0 +1,86 @@
+"""The port and ``chip_smoke.py`` stand alone: no JAX, no flax/optax/orbax,
+nothing of the JAX package, and no pandas on the scoring path."""
+
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+REPO = Path(__file__).resolve().parent.parent
+PORT = REPO / "dags_vae_search_tpu_torch"
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "dags_vae_search_tpu")
+SOURCES = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+
+
+def _imported_roots(path: Path):
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+
+
+@pytest.mark.parametrize("path", SOURCES, ids=[str(p.relative_to(REPO)) for p in SOURCES])
+def test_source_imports_nothing_of_jax(path):
+    bad = sorted(set(_imported_roots(path)) & set(FORBIDDEN))
+    assert not bad, f"{path.relative_to(REPO)} imports {bad}"
+
+
+def test_port_has_the_slice_modules():
+    modules = {
+        "graphs/dag.py", "graphs/sampler.py", "scoring/datasets.py", "scoring/catalog.py",
+        "ops/bic_torch.py", "ops/bic_kernel.py", "ops/_build.py", "csrc/contingency_counts.cu",
+        "scoring/bic.py", "utils/config.py", "experiments/registry.py",
+        "models/transformer.py", "models/pace_vae.py", "models/decode.py",
+        "search/latent.py", "convert.py",
+    }
+    assert all((PORT / m).is_file() for m in modules)
+
+
+BLOCKED_RUN = """
+import sys
+for name in ("jax", "jaxlib", "flax", "optax", "orbax", "pandas", "dags_vae_search_tpu"):
+    sys.modules[name] = None  # any import of these now raises ImportError
+import numpy as np
+from dags_vae_search_tpu_torch.models.pace_vae import make_model
+from dags_vae_search_tpu_torch.scoring.bic import BicScorer
+from dags_vae_search_tpu_torch.scoring.catalog import make_synthetic_problem
+from dags_vae_search_tpu_torch.search.latent import cem_search
+import dags_vae_search_tpu_torch.convert
+import dags_vae_search_tpu_torch.experiments.registry
+_, ds = make_synthetic_problem("cancer", num_cases=300)
+model = make_model(0, "cpu", num_real_vertices=5, real_label_cardinality=5, embed_size=8,
+                   num_heads=2, num_layers=1, latent_size=8, fc_hidden=8)
+res = cem_search(model, BicScorer(ds, max_parents=2, device="cpu"), iters=2, population=16,
+                 device="cpu")
+assert np.isfinite(res.best_score), res
+print("ok", res.best_score)
+"""
+
+
+def test_port_runs_a_search_without_jax_or_pandas():
+    proc = subprocess.run(
+        [sys.executable, "-c", BLOCKED_RUN], cwd=REPO, capture_output=True, text=True,
+        timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.startswith("ok")
+
+
+def test_chip_smoke_refuses_to_run_without_its_package_or_a_card(tmp_path):
+    import torch
+
+    lone = tmp_path / "chip_smoke.py"
+    lone.write_text((REPO / "chip_smoke.py").read_text())
+    runs = [(tmp_path, lone)]
+    if not torch.cuda.is_available():
+        runs.append((REPO, REPO / "chip_smoke.py"))
+    for cwd, script in runs:
+        proc = subprocess.run(
+            [sys.executable, str(script)], cwd=cwd, capture_output=True, text=True, timeout=300
+        )
+        assert proc.returncode != 0
+        assert '"ok": true' not in proc.stdout
