@@ -6,16 +6,21 @@ It needs one CUDA card and ``nvcc``; it imports nothing of JAX.  Phases, in
 order; any failure exits non-zero:
 
 1. device  — the card's name and power limit;
-2. kernels — builds ``csrc/contingency_counts.cu``, runs it at the alarm
-   search shape (2048 candidates x 37 nodes x 4,973 unique rows x 512 cells)
-   against its plain torch version (bit-equal), and times the kernel, the
-   plain version and one ``torch.bincount`` yardstick with CUDA events;
+2. kernels — builds ``csrc/contingency_counts.cu`` and runs both of its
+   entries at the alarm search shape (2048 candidates x 37 nodes x 4,973
+   unique rows x 512 cells) on sampled ER candidates: the seg entry against
+   its plain torch version, the fused entry against its plain version and
+   against the seg entry (all bit-equal); times each entry, its plain
+   version, the ``torch.bincount`` yardstick and the unfused path the fused
+   entry replaces (``cell_index`` + seg entry) with CUDA events;
 3. card vs CPU — counts (exact) and scores (f32 tolerance, float64 exact
    path to 1e-9) of 64 candidates against the CPU plain scorer, and the
    alarm-width model's loss on a small batch against the CPU;
 4. search  — the alarm-width CEM latent search (registry width, seeded
-   random weights) for 3 iterations of 2048 candidates, with the
-   contingency kernel's launch count read from that run alone.
+   random weights) for 3 iterations of 2048 candidates, with each
+   iteration's wall time and the kernels' launch counts read from that run
+   alone; then one more decoded population, timed by phase, on which both
+   entries are checked and timed again.
 
 The last stdout line is ``{"ok": true, "device": {...}}``; the line before
 it holds the kernels' JSON record.
@@ -33,9 +38,12 @@ import numpy as np
 
 SEED = 0
 CEM_ITERS = 3
-#: Published H100 SXM peaks: HBM bytes/s and float32 (non-tensor-core) FLOP/s.
+#: Published H100 SXM peak HBM bytes/s.
 H100_BYTES_PER_S = 3.35e12
-H100_F32_FLOPS = 67e12
+#: INT32 lanes of one H100 SXM per clock: 132 SMs x 64.
+H100_INT32_LANES = 132 * 64
+SOURCE = "dags_vae_search_tpu_torch/csrc/contingency_counts.cu"
+REPLACES = "dags_vae_search_tpu/ops/bic_pallas.py:46"
 
 
 def check(cond: bool, msg: str) -> None:
@@ -60,21 +68,118 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def phase_device(torch) -> str:
-    name = torch.cuda.get_device_name(0)
+def nvidia_smi(query: str, fmt: str = "csv,noheader") -> str:
     smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        ["nvidia-smi", f"--query-gpu={query}", f"--format={fmt}"],
         capture_output=True, text=True, timeout=60,
     )
     check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr.strip()}")
+    return smi.stdout.strip().splitlines()[0]
+
+
+def phase_device(torch) -> tuple:
+    """The card's name, and its largest SM clock in Hz (for the integer bound)."""
+    name = torch.cuda.get_device_name(0)
     print(f"device: {name}; torch {torch.__version__}, CUDA {torch.version.cuda}")
-    print(smi.stdout.strip().splitlines()[0])
-    return name
+    print(nvidia_smi("name,power.limit"))
+    clock_hz = float(nvidia_smi("clocks.max.sm", "csv,noheader,nounits")) * 1e6
+    print(f"max SM clock {clock_hz / 1e6:.0f} MHz")
+    return name, clock_hz
 
 
-def phase_kernels(torch, cfg, scorer) -> dict:
+def describe_rows(torch, adj, label: str) -> None:
+    """In-degree histogram of the rows, and the share that takes the fused
+    kernel's lane-private bins (binary data: span 2^(k+1) cells)."""
+    from dags_vae_search_tpu_torch.ops import bic_kernel
+
+    indeg = adj.sum(dim=1).reshape(-1).to(torch.int64)
+    hist = torch.bincount(indeg, minlength=9).tolist()
+    private = float((2 ** (indeg + 1) <= bic_kernel.SMALL_SPAN).float().mean())
+    print(f"{label}: in-degree histogram {hist}, mean {float(indeg.float().mean()):.3f}, "
+          f"rows on lane-private bins {private:.3f}")
+
+
+def time_entries(torch, scorer, adj, label: str, clock_hz: float) -> dict:
+    """Check both entries on the candidates ``adj`` (bit-equal to their plain
+    versions and to each other) and time them, their plain versions, the
+    yardstick and the unfused path; bounds from these inputs."""
+    from dags_vae_search_tpu_torch.ops import bic_kernel, bic_torch
+
+    pop, n, _ = adj.shape
+    w, q_cap, r_max = scorer._weights, scorer.q_cap, scorer.r_max
+    S = q_cap * r_max
+    U = w.shape[0]
+    R = pop * n
+    strides, _ = bic_torch.parent_config_strides(adj, scorer._cards)
+    strides_t = strides.transpose(1, 2).contiguous()
+    codes_cm = scorer._codes_cm
+    describe_rows(torch, adj, label)
+
+    def unfused():
+        seg = bic_torch.cell_index(scorer._codes_u, strides, q_cap, r_max)
+        return bic_kernel.contingency_counts_kernel(w, seg.reshape(R, U), S)
+
+    def fused():
+        return bic_kernel.contingency_counts_fused(strides_t, codes_cm, w, q_cap, r_max)
+
+    seg = bic_torch.cell_index(scorer._codes_u, strides, q_cap, r_max).reshape(R, U)
+    out_seg = bic_kernel.contingency_counts_kernel(w, seg, S)
+    out_fused = fused()
+    torch.cuda.synchronize()
+    # integer counts below 2^24 are exact in f32 in any order: tolerance 0
+    want_seg = bic_kernel.contingency_counts_plain(w, seg, S)
+    check(torch.equal(out_seg, want_seg), f"{label}: seg kernel differs from its plain version")
+    want_fused = bic_kernel.contingency_counts_fused_plain(strides_t, codes_cm, w, q_cap, r_max)
+    check(torch.equal(out_fused, want_fused), f"{label}: fused kernel differs from its plain version")
+    check(torch.equal(out_fused, out_seg), f"{label}: fused counts differ from seg-kernel counts")
+    err_seg = float((out_seg - want_seg).abs().max())
+    err_fused = float((out_fused - want_fused).abs().max())
+    total = float(out_fused.sum(dtype=torch.float64))
+    check(total == float(w.sum(dtype=torch.float64)) * R, f"{label}: counts do not sum to the cases")
+    print(f"{label}: seg kernel vs plain max |diff| {err_seg}, fused kernel vs plain max |diff| "
+          f"{err_fused}, fused vs seg equal (tolerance 0, bit-equal)")
+    del out_seg, out_fused, want_seg, want_fused
+
+    flat = (torch.arange(R, device="cuda", dtype=torch.int64)[:, None] * S + seg).reshape(-1)
+    w_rep = w.expand(R, U).reshape(-1)
+    t = {
+        "fused_ms": cuda_ms(fused, reps=20),
+        "seg_ms": cuda_ms(lambda: bic_kernel.contingency_counts_kernel(w, seg, S), reps=20),
+        "before_ms": cuda_ms(unfused, reps=10),
+        "fused_plain_ms": cuda_ms(
+            lambda: bic_kernel.contingency_counts_fused_plain(strides_t, codes_cm, w, q_cap, r_max),
+            reps=3, warmup=1),
+        "seg_plain_ms": cuda_ms(lambda: bic_kernel.contingency_counts_plain(w, seg, S), reps=3, warmup=1),
+        "bincount_ms": cuda_ms(
+            lambda: torch.bincount(flat, weights=w_rep, minlength=R * S), reps=3, warmup=1),
+        "small_span_ms": {
+            span: cuda_ms(lambda: bic_kernel._launch_fused(strides_t, codes_cm, w, q_cap, r_max, span),
+                          reps=10)
+            for span in (0, 8, 16, 32, 64)
+        },
+        "err_seg": err_seg,
+        "err_fused": err_fused,
+    }
+    del flat, w_rep, seg
+    int_rate = H100_INT32_LANES * clock_hz
+    parents = float(adj.sum())
+    fused_bytes = strides_t.numel() * 4 + codes_cm.numel() * codes_cm.element_size() + U * 4 + R * S * 4
+    fused_ops = U * (parents + 2 * R)  # per row and unique row: parents' multiply-adds, child, bin
+    seg_bytes = R * U * 4 + U * 4 + R * S * 4
+    seg_ops = R * U  # one bin add per cell
+    for key, nbytes, ops in (("fused", fused_bytes, fused_ops), ("seg", seg_bytes, seg_ops)):
+        bytes_ms = nbytes / H100_BYTES_PER_S * 1e3
+        ops_ms = ops / int_rate * 1e3
+        t[f"{key}_bytes"], t[f"{key}_int_ops"] = nbytes, ops
+        t[f"{key}_bound_ms"] = max(bytes_ms, ops_ms)
+        t[f"{key}_bound_by"] = "bytes" if bytes_ms >= ops_ms else "operations"
+    print(f"{label}: " + json.dumps(t))
+    return t
+
+
+def phase_kernels(torch, cfg, scorer, clock_hz) -> dict:
     from dags_vae_search_tpu_torch.graphs import sampler
-    from dags_vae_search_tpu_torch.ops import _build, bic_kernel, bic_torch
+    from dags_vae_search_tpu_torch.ops import _build
 
     n, pop = cfg.num_vertices, cfg.search.cem_population
     rng = np.random.default_rng(SEED)
@@ -82,58 +187,17 @@ def phase_kernels(torch, cfg, scorer) -> dict:
     _, adj_np = sampler.sample_er_batch(
         rng, pop, n, 2 * n, n, max_in_degree=cfg.search.max_parents
     )
-    adj = torch.as_tensor(adj_np, device="cuda")
-    strides, _ = bic_torch.parent_config_strides(adj, scorer._cards)
-    seg = bic_torch.cell_index(scorer._codes_u, strides, scorer.q_cap, scorer.r_max)
-    seg = seg.reshape(pop * n, -1).contiguous()
-    w = scorer._weights
-    S = scorer.q_cap * scorer.r_max
-    R, U = seg.shape
-    print(f"kernel shape: R={R} (B={pop} x n={n}) U={U} S={S}")
+    print(f"kernel shape: R={pop * n} (B={pop} x n={n}) U={scorer.num_unique_rows} "
+          f"S={scorer.q_cap * scorer.r_max}")
 
     t0 = time.perf_counter()
     _build.load("contingency_counts")
     print(f"contingency_counts build+load {time.perf_counter() - t0:.2f} s")
     for line in _build.build_logs.get("contingency_counts", "").splitlines():
-        if "registers" in line or "smem" in line or "spill" in line:
+        if "entry function" in line or "registers" in line or "smem" in line or "spill" in line:
             print("  ptxas:", line.strip())
-
-    out_k = bic_kernel.contingency_counts_kernel(w, seg, S)
-    torch.cuda.synchronize()
-    out_p = bic_kernel.contingency_counts_plain(w, seg, S)
-    # integer counts below 2^24 are exact in f32 in any order: tolerance 0
-    check(torch.equal(out_k, out_p), "kernel counts differ from the plain version")
-    max_abs_err = float((out_k - out_p).abs().max())
-    print(f"kernel vs plain: max |diff| {max_abs_err} (tolerance 0, bit-equal)")
-    total = float(out_k.sum(dtype=torch.float64))
-    check(total == float(w.sum(dtype=torch.float64)) * R, "counts do not sum to the cases")
-    del out_k, out_p
-
-    flat = (torch.arange(R, device="cuda", dtype=torch.int64)[:, None] * S + seg).reshape(-1)
-    w_rep = w.expand(R, U).reshape(-1)
-    ms = cuda_ms(lambda: bic_kernel.contingency_counts_kernel(w, seg, S), reps=20)
-    plain_ms = cuda_ms(lambda: bic_kernel.contingency_counts_plain(w, seg, S), reps=3, warmup=1)
-    library_ms = cuda_ms(
-        lambda: torch.bincount(flat, weights=w_rep, minlength=R * S), reps=3, warmup=1
-    )
-    del flat, w_rep
-    bytes_moved = R * U * 4 + U * 4 + R * S * 4
-    bytes_ms = bytes_moved / H100_BYTES_PER_S * 1e3
-    ops_ms = R * U / H100_F32_FLOPS * 1e3
-    return {
-        "name": "contingency_counts",
-        "route": "cuda",
-        "source": "dags_vae_search_tpu_torch/csrc/contingency_counts.cu",
-        "replaces": "dags_vae_search_tpu/ops/bic_pallas.py:46",
-        "launches": None,
-        "max_abs_err": max_abs_err,
-        "ms": ms,
-        "plain_ms": plain_ms,
-        "bound_ms": max(bytes_ms, ops_ms),
-        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-        "library_ms": library_ms,
-        "bytes": bytes_moved,
-    }
+    return time_entries(torch, scorer, torch.as_tensor(adj_np, device="cuda"), "ER candidates",
+                        clock_hz)
 
 
 def phase_card_vs_cpu(torch, cfg, scorer, dataset) -> None:
@@ -174,7 +238,7 @@ def phase_card_vs_cpu(torch, cfg, scorer, dataset) -> None:
     print(f"model loss card {loss_gpu.tolist()} vs CPU {loss_cpu.tolist()} (rtol 1e-4)")
 
 
-def phase_search(torch, cfg, scorer) -> dict:
+def phase_search(torch, cfg, scorer, clock_hz) -> tuple:
     from dags_vae_search_tpu_torch.models.decode import decode_to_labeled
     from dags_vae_search_tpu_torch.models.pace_vae import make_model, num_parameters
     from dags_vae_search_tpu_torch.ops import bic_kernel
@@ -185,17 +249,41 @@ def phase_search(torch, cfg, scorer) -> dict:
     check(params == 16_260_634, f"alarm model has {params} parameters, want 16,260,634")
     pop = cfg.search.cem_population
 
+    # each iteration ends in one score call: stamp its end (after a sync that
+    # the iteration's argmax would make anyway) to get per-iteration times
+    stamps = []
+    score = scorer.score
+
+    def stamped_score(adj):
+        out = score(adj)
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        return out
+
+    scorer.score = stamped_score
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
+    bic_kernel.contingency_counts_fused.launches = 0
     bic_kernel.contingency_counts_kernel.launches = 0
     t0 = time.perf_counter()
-    result = cem_search(model, scorer, seed=SEED, iters=CEM_ITERS, population=pop, device="cuda")
-    torch.cuda.synchronize()
+    try:
+        result = cem_search(model, scorer, seed=SEED, iters=CEM_ITERS, population=pop, device="cuda")
+        torch.cuda.synchronize()
+    finally:
+        del scorer.score
     search_s = time.perf_counter() - t0
-    launches = bic_kernel.contingency_counts_kernel.launches
+    launches = {
+        "contingency_counts_fused": bic_kernel.contingency_counts_fused.launches,
+        "contingency_counts": bic_kernel.contingency_counts_kernel.launches,
+    }
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    iter_s = np.diff([t0, *stamps]).tolist()
+    for i, dt in enumerate(iter_s):
+        print(f"CEM iteration {i}: {dt:.4f} s (to the end of its score call)")
 
-    check(launches == CEM_ITERS, f"kernel launched {launches} times in {CEM_ITERS} iterations")
+    check(len(stamps) == CEM_ITERS, f"{len(stamps)} score calls in {CEM_ITERS} iterations")
+    check(launches["contingency_counts_fused"] == CEM_ITERS,
+          f"fused kernel launched {launches['contingency_counts_fused']} times in {CEM_ITERS} iterations")
     check(np.isfinite(result.best_score), f"best BIC {result.best_score} is not finite")
     check(result.num_evals == CEM_ITERS * pop, "evaluation count")
     check(
@@ -228,7 +316,8 @@ def phase_search(torch, cfg, scorer) -> dict:
     score_ms = (time.perf_counter() - t0) * 1e3
     valid_frac = float((valid & is_perm).float().mean())
     finite_frac = float(torch.isfinite(scores).float().mean())
-    return {
+    decoded = time_entries(torch, scorer, relabeled, "decoded candidates", clock_hz)
+    search = {
         "params": params,
         "population": pop,
         "iters": CEM_ITERS,
@@ -237,7 +326,9 @@ def phase_search(torch, cfg, scorer) -> dict:
         "best_bic_exact": exact,
         "history": result.history,
         "search_s": search_s,
+        "iter_s": iter_s,
         "candidates_per_s": result.num_evals / search_s,
+        "candidates_per_s_after_first": (CEM_ITERS - 1) * pop / (stamps[-1] - stamps[0]),
         "decode_ms_per_iter": decode_ms,
         "score_ms_per_iter": score_ms,
         "valid_decode_fraction": valid_frac,
@@ -245,6 +336,43 @@ def phase_search(torch, cfg, scorer) -> dict:
         "peak_mem_gib": peak_gib,
         "kernel_launches": launches,
     }
+    return search, decoded
+
+
+def kernel_records(er: dict, decoded: dict, launches: dict) -> list:
+    """The kernels' records: times, plain times and bounds on the decoded
+    population (the main path's inputs), ER-candidate times beside them."""
+    def record(name, key, plain_key, library_ms, extra):
+        return {
+            "name": name,
+            "route": "cuda",
+            "source": SOURCE,
+            "replaces": REPLACES,
+            "launches": launches[name],
+            "max_abs_err": max(er[f"err_{key}"], decoded[f"err_{key}"]),
+            "ms": decoded[f"{key}_ms"],
+            "plain_ms": decoded[plain_key],
+            "bound_ms": decoded[f"{key}_bound_ms"],
+            "bound_by": decoded[f"{key}_bound_by"],
+            "library_ms": library_ms,
+            "inputs": "decoded population",
+            "ms_er": er[f"{key}_ms"],
+            "plain_ms_er": er[plain_key],
+            "bound_ms_er": er[f"{key}_bound_ms"],
+            "bytes": decoded[f"{key}_bytes"],
+            "int_ops": decoded[f"{key}_int_ops"],
+            **extra,
+        }
+
+    return [
+        record("contingency_counts_fused", "fused", "fused_plain_ms", None, {
+            "before_ms": decoded["before_ms"], "before_ms_er": er["before_ms"],
+            "small_span_ms": decoded["small_span_ms"], "small_span_ms_er": er["small_span_ms"],
+        }),
+        record("contingency_counts", "seg", "seg_plain_ms", decoded["bincount_ms"], {
+            "library_ms_er": er["bincount_ms"],
+        }),
+    ]
 
 
 def main() -> int:
@@ -262,7 +390,7 @@ def main() -> int:
     from dags_vae_search_tpu_torch.scoring.catalog import make_synthetic_problem
 
     t_start = time.perf_counter()
-    name = phase_device(torch)
+    name, clock_hz = phase_device(torch)
     cfg = REGISTRY["alarm"]
     _, dataset = make_synthetic_problem(
         cfg.name, num_cases=cfg.simulate_cases, max_card=cfg.simulate_max_card, seed=cfg.seed
@@ -274,13 +402,12 @@ def main() -> int:
         f"q_cap={scorer.q_cap}, r_max={scorer.r_max}"
     )
 
-    record = phase_kernels(torch, cfg, scorer)
+    er = phase_kernels(torch, cfg, scorer, clock_hz)
     phase_card_vs_cpu(torch, cfg, scorer, dataset)
-    search = phase_search(torch, cfg, scorer)
-    record["launches"] = search["kernel_launches"]
+    search, decoded = phase_search(torch, cfg, scorer, clock_hz)
     print("search:", json.dumps(search))
     print(f"total {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": [record]}))
+    print(json.dumps({"kernels": kernel_records(er, decoded, search["kernel_launches"])}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

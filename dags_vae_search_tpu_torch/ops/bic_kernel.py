@@ -1,17 +1,29 @@
-"""Contingency counts through the hand-written CUDA kernel.
+"""Contingency counts through the hand-written CUDA kernels.
 
 Counterpart of ``dags_vae_search_tpu/ops/bic_pallas.py``.  The dataset is
 compressed to its U unique rows with multiplicities ``w``; every
-(candidate, node) row gets the flat cell index
-``seg = clip(cfg, 0, q_cap-1) * r_max + child`` of each unique row (the
-configuration product is a plain matmul, as the JAX package leaves it to
-XLA), and the kernel turns ``seg`` into weighted histograms of S = q_cap *
-r_max cells.  Source: ``csrc/contingency_counts.cu``.
+(candidate, node) row gets the flat cell
+``seg = clip(cfg, 0, q_cap-1) * r_max + child`` of each unique row, and its
+counts are the weighted histogram of ``seg`` over S = q_cap * r_max cells.
+Source of both kernels: ``csrc/contingency_counts.cu``.
 
-On a CUDA tensor :func:`contingency_counts_kernel` launches the kernel or
-raises; on a CPU tensor it runs :func:`contingency_counts_plain`, the same
-function in plain torch.  The TPU kernel's 128-aligned row padding is not
-needed here: a block strides over any U.
+- :func:`contingency_counts_fused` computes the cells inside the kernel from
+  the parent strides and the column-major codes (:func:`column_major_codes`),
+  so the [B, n, U] cell table is never built.  :func:`contingency_counts`,
+  which ``BicScorer`` calls, goes through it.
+- :func:`contingency_counts_kernel` takes the cell table ready-made, the
+  one-to-one counterpart of the Pallas kernel's contract.
+
+On a CUDA tensor each wrapper launches its kernel or raises; on a CPU tensor
+it runs its plain torch version (``*_plain``).  The TPU kernel's 128-aligned
+row padding is not needed here: a warp strides over any U.
+
+Weights are multiplicities: non-negative integers summing below 2^24, as
+``BicScorer`` makes them.  The kernels count in integers (their shared-memory
+atomics are native only for integers), so every count is exact and equals
+the plain float scatter-add bit for bit.  A fractional weight would be cut
+to its integer part.  The wrappers do not check the values: that would cost
+a read back to the host on every call.
 """
 
 from __future__ import annotations
@@ -24,6 +36,28 @@ from dags_vae_search_tpu_torch.ops import _build, bic_torch
 
 #: Most shared memory one block can take on Hopper (227 KB).
 MAX_SHARED_BYTES = 232_448
+#: A row whose cells all lie below this many takes lane-private bins in the
+#: fused kernel (binary data: nodes with up to 3 parents); others take
+#: shared atomics.  ``chip_smoke.py`` times the choices around it.
+SMALL_SPAN = 16
+
+
+def _round_up(x: int, m: int) -> int:
+    return (x + m - 1) // m * m
+
+
+def _function(name: str, argtypes: list):
+    fn = getattr(_build.load("contingency_counts"), name)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+# ---- the seg entry ---------------------------------------------------------
 
 
 def contingency_counts_plain(w: torch.Tensor, seg: torch.Tensor, S: int) -> torch.Tensor:
@@ -38,18 +72,15 @@ def contingency_counts_plain(w: torch.Tensor, seg: torch.Tensor, S: int) -> torc
 
 
 def _launch(w: torch.Tensor, seg: torch.Tensor, S: int) -> torch.Tensor:
-    lib = _build.load("contingency_counts")
-    fn = lib.contingency_counts_launch
-    fn.argtypes = [
+    fn = _function("contingency_counts_launch", [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-    ]
-    fn.restype = ctypes.c_int
+    ])
     r, u = seg.shape
+    w_int = w.to(torch.int32)  # the kernel reads the multiplicities as uint32
     out = torch.empty((r, S), dtype=torch.float32, device=seg.device)
     with torch.cuda.device(seg.device):
-        stream = torch.cuda.current_stream(seg.device).cuda_stream
-        err = fn(w.data_ptr(), seg.data_ptr(), out.data_ptr(), r, u, S, stream)
+        err = fn(w_int.data_ptr(), seg.data_ptr(), out.data_ptr(), r, u, S, _stream(seg))
     if err != 0:
         raise RuntimeError(f"contingency_counts kernel launch failed: cudaError {err}")
     return out
@@ -83,6 +114,112 @@ def contingency_counts_kernel(w: torch.Tensor, seg: torch.Tensor, S: int) -> tor
 contingency_counts_kernel.launches = 0
 
 
+# ---- the fused entry -------------------------------------------------------
+
+
+def column_major_codes(codes_u: torch.Tensor, r_max: int) -> torch.Tensor:
+    """The fused kernel's layout of the unique rows int[U, n]: [n, U16], one
+    column per variable, zero-padded to U16 = U rounded up to 16 (so every
+    vector load of 4 codes stays inside its column and aligned); uint8 when
+    ``r_max <= 255``, else int32."""
+    u, n = codes_u.shape
+    dtype = torch.uint8 if r_max <= 255 else torch.int32
+    out = torch.zeros((n, _round_up(u, 16)), dtype=dtype, device=codes_u.device)
+    out[:, :u] = codes_u.T.to(dtype)
+    return out
+
+
+def contingency_counts_fused_plain(
+    strides_t: torch.Tensor, codes_cm: torch.Tensor, w: torch.Tensor, q_cap: int, r_max: int
+) -> torch.Tensor:
+    """The fused kernel's function in plain torch: strides saturated at
+    q_cap, their exact product with the codes (integers in float64), the
+    cells ``min(cfg, q_cap-1) * r_max + child``, then
+    :func:`contingency_counts_plain`.  -> f32[B*n, q_cap*r_max]."""
+    b, n, _ = strides_t.shape
+    u = w.shape[0]
+    codes = codes_cm[:, :u]
+    sat = torch.clamp(strides_t, max=float(q_cap)).to(torch.float64)
+    cfg = torch.matmul(sat, codes.to(torch.float64))  # [B, n, U], below 2^31
+    seg = torch.clamp(cfg, max=q_cap - 1).to(torch.int32) * r_max + codes.to(torch.int32)
+    return contingency_counts_plain(w, seg.reshape(b * n, u), q_cap * r_max)
+
+
+def _fused_warp_bytes(S: int, n: int) -> int:
+    """Shared memory one warp of the fused kernel takes (as the launcher
+    computes it): S bins or 32 lane-private copies of SMALL_SPAN bins, and
+    the row's parent list."""
+    return 4 * _round_up(max(S, 32 * min(SMALL_SPAN, S)), 4) + 8 * n
+
+
+def _launch_fused(strides_t, codes_cm, w, q_cap, r_max, small_span=SMALL_SPAN):
+    fn = _function("contingency_counts_fused_launch", [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_void_p,
+    ])
+    b, n, _ = strides_t.shape
+    w_int = w.to(torch.int32)  # the kernel reads the multiplicities as uint32
+    out = torch.empty((b * n, q_cap * r_max), dtype=torch.float32, device=strides_t.device)
+    with torch.cuda.device(strides_t.device):
+        err = fn(
+            strides_t.data_ptr(), codes_cm.data_ptr(), codes_cm.element_size(), w_int.data_ptr(),
+            out.data_ptr(), b * n, n, w.shape[0], codes_cm.shape[1], q_cap, r_max, small_span,
+            _stream(strides_t),
+        )
+    if err != 0:
+        raise RuntimeError(f"contingency_counts_fused kernel launch failed: cudaError {err}")
+    return out
+
+
+def contingency_counts_fused(
+    strides_t: torch.Tensor,  # float32[B, n, n], strides_t[b, i, m] = stride of parent m of i
+    codes_cm: torch.Tensor,  # uint8 or int32 [n, U16] from column_major_codes
+    w: torch.Tensor,  # float32[U] multiplicities
+    q_cap: int,
+    r_max: int,
+) -> torch.Tensor:
+    """Counts f32[B*n, q_cap*r_max] of every (candidate, node) row straight
+    from the parent strides: the CUDA kernel on a CUDA tensor, the plain
+    version on a CPU tensor.  Codes must lie in [0, r_max).
+    ``contingency_counts_fused.launches`` counts kernel launches."""
+    if strides_t.dtype != torch.float32 or w.dtype != torch.float32:
+        raise TypeError(f"want float32 strides and w, got {strides_t.dtype}, {w.dtype}")
+    if codes_cm.dtype not in (torch.uint8, torch.int32):
+        raise TypeError(f"want uint8 or int32 codes, got {codes_cm.dtype}")
+    if strides_t.dim() != 3 or strides_t.shape[1] != strides_t.shape[2] or w.dim() != 1:
+        raise ValueError(f"want strides [B, n, n] and w [U], got {tuple(strides_t.shape)}, "
+                         f"{tuple(w.shape)}")
+    b, n, _ = strides_t.shape
+    u = w.shape[0]
+    if codes_cm.dim() != 2 or codes_cm.shape[0] != n or codes_cm.shape[1] < u \
+            or codes_cm.shape[1] % 16:
+        raise ValueError(f"want codes [n={n}, U16 >= {u}, U16 % 16 == 0], "
+                         f"got {tuple(codes_cm.shape)}")
+    if not (strides_t.device == codes_cm.device == w.device):
+        raise ValueError(f"strides on {strides_t.device}, codes on {codes_cm.device}, w on {w.device}")
+    S = q_cap * r_max
+    if q_cap < 1 or r_max < 1 or _fused_warp_bytes(S, n) > MAX_SHARED_BYTES:
+        raise ValueError(f"q_cap={q_cap}, r_max={r_max}, n={n} need {_fused_warp_bytes(S, n)} "
+                         f"bytes; a block has {MAX_SHARED_BYTES}")
+    if not 0 < b * n < 2**31 or n * S >= 2**31 or n * codes_cm.shape[1] >= 2**31:
+        raise ValueError(f"B={b}, n={n}, S={S}, U16={codes_cm.shape[1]} outside the kernel's range")
+    if strides_t.device.type == "cpu":
+        return contingency_counts_fused_plain(strides_t, codes_cm, w, q_cap, r_max)
+    if strides_t.device.type != "cuda":
+        raise ValueError(f"no contingency kernel for device {strides_t.device}")
+    if not (strides_t.is_contiguous() and codes_cm.is_contiguous() and w.is_contiguous()):
+        raise ValueError("strides, codes and w must be contiguous")
+    if codes_cm.data_ptr() % 16:
+        raise ValueError("codes must start on a 16-byte boundary")
+    out = _launch_fused(strides_t, codes_cm, w, q_cap, r_max)
+    contingency_counts_fused.launches += 1
+    return out
+
+
+contingency_counts_fused.launches = 0
+
+
 def contingency_counts(
     adj: torch.Tensor,  # float32[B, n, n]
     codes_u: torch.Tensor,  # int32[U, n] unique dataset rows
@@ -90,12 +227,18 @@ def contingency_counts(
     cards: torch.Tensor,  # int32[n]
     q_cap: int,
     r_max: int,
+    codes_cm: torch.Tensor | None = None,
 ):
-    """Counts float32[B, n, q_cap, r_max] and config sizes q float32[B, n]."""
+    """Counts float32[B, n, q_cap, r_max] and config sizes q float32[B, n],
+    through :func:`contingency_counts_fused`.  ``codes_cm`` is
+    ``column_major_codes(codes_u, r_max)`` where the caller keeps it."""
     b, n, _ = adj.shape
     strides, q = bic_torch.parent_config_strides(adj, cards)
-    seg = bic_torch.cell_index(codes_u, strides, q_cap, r_max)  # [B, n, U]
-    counts = contingency_counts_kernel(weights, seg.reshape(b * n, -1), q_cap * r_max)
+    if codes_cm is None:
+        codes_cm = column_major_codes(codes_u, r_max)
+    counts = contingency_counts_fused(
+        strides.transpose(1, 2).contiguous(), codes_cm, weights, q_cap, r_max
+    )
     return counts.reshape(b, n, q_cap, r_max), q
 
 

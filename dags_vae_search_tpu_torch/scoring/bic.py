@@ -81,6 +81,8 @@ class BicScorer:
         self.num_unique_rows = codes_u.shape[0]
         self._codes_u = torch.as_tensor(codes_u, dtype=torch.int32, device=self.device)
         self._weights = torch.as_tensor(weights, dtype=torch.float32, device=self.device)
+        # the fused kernel's layout of the unique rows, made once
+        self._codes_cm = bic_kernel.column_major_codes(self._codes_u, self.r_max)
 
     def _adj(self, adj) -> torch.Tensor:
         return torch.as_tensor(adj, dtype=torch.float32, device=self.device)
@@ -91,7 +93,8 @@ class BicScorer:
         adj = self._adj(adj)
         if self.impl == "kernel":
             return bic_kernel.contingency_counts(
-                adj, self._codes_u, self._weights, self._cards, self.q_cap, self.r_max
+                adj, self._codes_u, self._weights, self._cards, self.q_cap, self.r_max,
+                codes_cm=self._codes_cm,
             )
         return bic_torch.contingency_counts(
             adj, self._codes, self._cards, self.q_cap, self.r_max

@@ -1,5 +1,5 @@
-"""Card tests: the CUDA contingency kernel against its plain version, and the
-port on the card against the port on the CPU.
+"""Card tests: the CUDA contingency kernels (seg and fused entries) against
+their plain versions, and the port on the card against the port on the CPU.
 
 Every test here needs a CUDA card and skips without one; whether there is a
 card is decided inside the ``cuda`` fixture, never at import.  On the card:
@@ -16,7 +16,7 @@ import torch
 
 from dags_vae_search_tpu_torch.graphs import sampler
 from dags_vae_search_tpu_torch.models import decode, pace_vae
-from dags_vae_search_tpu_torch.ops import bic_kernel
+from dags_vae_search_tpu_torch.ops import bic_kernel, bic_torch
 from dags_vae_search_tpu_torch.scoring.bic import BicScorer
 from dags_vae_search_tpu_torch.scoring.catalog import make_synthetic_problem
 
@@ -64,6 +64,86 @@ def test_kernel_wrapper_rejects_what_it_cannot_take(cuda):
         bic_kernel.contingency_counts_kernel(w.to(cuda), seg.to(cuda).T.contiguous().T, 16)
     with pytest.raises(ValueError, match="on"):
         bic_kernel.contingency_counts_kernel(w, seg.to(cuda), 16)
+
+
+def _fused_inputs(B, n, U, r_max, indegrees, seed=0):
+    """Codes in [0, card) with one variable at r_max, integer weights, and
+    candidates whose rows cycle through the given in-degrees."""
+    rng = np.random.default_rng(seed)
+    cards = rng.integers(2, r_max + 1, size=n)
+    cards[0] = r_max
+    codes = (rng.integers(0, 2**30, size=(U, n)) % cards).astype(np.int32)
+    w = rng.integers(1, 20, size=U).astype(np.float32)
+    adj = np.zeros((B, n, n), np.float32)
+    for r in range(B * n):
+        b, i = divmod(r, n)
+        k = min(indegrees[r % len(indegrees)], n - 1)
+        adj[b, rng.choice(np.delete(np.arange(n), i), size=k, replace=False), i] = 1.0
+    return torch.as_tensor(codes), torch.as_tensor(w), torch.as_tensor(cards.astype(np.int32)), \
+        torch.as_tensor(adj)
+
+
+DECODED_MIX = (8,) * 13 + tuple(range(8))  # ~65% at 8 parents, as decodes give
+
+
+@pytest.mark.parametrize(
+    "B,n,U,r_max,q_cap,indegrees",
+    [
+        (2, 37, 4973, 2, 256, DECODED_MIX),  # alarm search widths, both sides of SMALL_SPAN
+        (3, 12, 3000, 4, 64, tuple(range(9))),  # cards up to 4, rows past q_cap
+        (2, 10, 2000, 4, 4096, (0, 3, 8)),  # S = 16,384: dynamic shared memory
+        (2, 9, 257, 3, 32, (0, 8, 2)),  # U not a multiple of 4 or of the warp
+        (2, 6, 1, 2, 16, (0, 5, 1)),  # U = 1
+        (2, 5, 500, 300, 4, (0, 1, 2)),  # r_max > 255: int32 codes
+    ],
+    ids=["alarm-widths", "card4", "q4096", "u257", "u1", "int32-codes"],
+)
+def test_fused_kernel_equals_plain_and_seg_kernel(cuda, B, n, U, r_max, q_cap, indegrees):
+    codes_u, w, cards, adj = _fused_inputs(B, n, U, r_max, indegrees)
+    strides, _ = bic_torch.parent_config_strides(adj, cards)
+    strides_t = strides.transpose(1, 2).contiguous()
+    codes_cm = bic_kernel.column_major_codes(codes_u, r_max)
+    want = bic_kernel.contingency_counts_fused_plain(strides_t, codes_cm, w, q_cap, r_max)
+    before = bic_kernel.contingency_counts_fused.launches
+    got = bic_kernel.contingency_counts_fused(
+        strides_t.to(cuda), codes_cm.to(cuda), w.to(cuda), q_cap, r_max
+    )
+    torch.cuda.synchronize()
+    assert bic_kernel.contingency_counts_fused.launches == before + 1
+    assert torch.equal(got.cpu(), want)
+    seg = bic_torch.cell_index(codes_u, strides, q_cap, r_max).reshape(B * n, U)
+    by_seg = bic_kernel.contingency_counts_kernel(w.to(cuda), seg.to(cuda), q_cap * r_max)
+    assert torch.equal(by_seg.cpu(), want)
+
+
+def test_fused_alarm_data_equals_plain(cuda):
+    _, ds = make_synthetic_problem("alarm")
+    n = ds.num_variables
+    _, adj = sampler.sample_er_batch(
+        np.random.default_rng(2), 2, n, 2 * n, n, require_connected=False, max_in_degree=8
+    )
+    codes_u, w = np.unique(ds.codes, axis=0, return_counts=True)
+    codes_u = torch.as_tensor(codes_u.astype(np.int32))
+    strides, _ = bic_torch.parent_config_strides(torch.as_tensor(adj), torch.as_tensor(ds.cards))
+    strides_t = strides.transpose(1, 2).contiguous()
+    codes_cm = bic_kernel.column_major_codes(codes_u, 2)
+    w = torch.as_tensor(w.astype(np.float32))
+    want = bic_kernel.contingency_counts_fused_plain(strides_t, codes_cm, w, 256, 2)
+    got = bic_kernel.contingency_counts_fused(strides_t.to(cuda), codes_cm.to(cuda), w.to(cuda), 256, 2)
+    assert torch.equal(got.cpu(), want)
+
+
+def test_fused_wrapper_rejects_what_it_cannot_take(cuda):
+    codes_u, w, cards, adj = _fused_inputs(2, 6, 64, 2, (1, 2))
+    strides, _ = bic_torch.parent_config_strides(adj, cards)
+    codes_cm = bic_kernel.column_major_codes(codes_u, 2).to(cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        bic_kernel.contingency_counts_fused(strides.to(cuda).transpose(1, 2), codes_cm, w.to(cuda), 16, 2)
+    with pytest.raises(ValueError, match="on"):
+        bic_kernel.contingency_counts_fused(strides.to(cuda), codes_cm, w, 16, 2)
+    misaligned = torch.zeros(6 * 64 + 1, dtype=torch.uint8, device=cuda)[1:].view(6, 64)
+    with pytest.raises(ValueError, match="16-byte"):
+        bic_kernel.contingency_counts_fused(strides.to(cuda), misaligned, w.to(cuda), 16, 2)
 
 
 @pytest.mark.parametrize("name", ["asia", "alarm"])
