@@ -1,9 +1,9 @@
-"""Experiment registry: per-experiment model, corpus and search settings.
+"""Experiment registry: per-experiment model, corpus, training and search
+settings.
 
-Counterpart of ``dags_vae_search_tpu/experiments/registry.py`` for the
-search slice; the training settings arrive with the training slice.  Every
-experiment here simulates its dataset from ``seed`` (``dataset_csv`` is
-None); a real ``target.csv`` is loaded with
+Counterpart of ``dags_vae_search_tpu/experiments/registry.py``, with the
+same values.  Every experiment here simulates its dataset from ``seed``
+(``dataset_csv`` is None); a real ``target.csv`` is loaded with
 ``scoring.datasets.load_target_csv``.
 """
 
@@ -13,6 +13,7 @@ import math
 from typing import Dict
 
 from dags_vae_search_tpu_torch.scoring.catalog import CATALOG, density_cap
+from dags_vae_search_tpu_torch.training.train import TrainConfig
 from dags_vae_search_tpu_torch.utils.config import (
     CorpusConfig,
     ExperimentConfig,
@@ -31,6 +32,7 @@ def _catalog_experiment(
     name: str,
     corpus_batch: int,
     steps: int,
+    train: TrainConfig,
     model: ModelConfig | None = None,
     max_card: int = 2,
     density: float | None = None,
@@ -55,6 +57,7 @@ def _catalog_experiment(
             density_limit=density if density is not None else density_cap(n),
             max_in_degree=search.max_parents,
         ),
+        train=train,
         search=search,
     )
 
@@ -63,26 +66,40 @@ def build_registry() -> Dict[str, ExperimentConfig]:
     registry: Dict[str, ExperimentConfig] = {}
 
     # asia — the flagship
-    registry["asia"] = _catalog_experiment("asia", corpus_batch=4000, steps=16, density=0.4)
+    registry["asia"] = _catalog_experiment(
+        "asia", corpus_batch=4000, steps=16, density=0.4,
+        train=TrainConfig(batch_size=32, epochs=100, learning_rate=1e-4, steps_per_call=100),
+    )
     for name in ("cancer", "earthquake", "survey"):
-        registry[name] = _catalog_experiment(name, corpus_batch=400, steps=16)
-    registry["sachs"] = _catalog_experiment("sachs", corpus_batch=400, steps=20, density=0.4)
+        registry[name] = _catalog_experiment(
+            name, corpus_batch=400, steps=16,
+            train=TrainConfig(batch_size=32, epochs=60, learning_rate=1e-4, steps_per_call=100),
+        )
+    registry["sachs"] = _catalog_experiment(
+        "sachs", corpus_batch=400, steps=20, density=0.4,
+        train=TrainConfig(batch_size=32, epochs=100, learning_rate=1e-4, steps_per_call=100),
+    )
     registry["synthetic_12"] = ExperimentConfig(
         name="synthetic_12",
         num_vertices=12,
         label_cardinality=1,
         corpus=CorpusConfig(batch_size=200, steps_limit=20, density_limit=0.4,
                             max_in_degree=8),
+        train=TrainConfig(batch_size=32, epochs=50, learning_rate=1e-4, steps_per_call=100),
         search=SearchConfig(max_parents=8),
     )
 
-    # medium nets: monolithic edge readout with pair-scaled latents
+    # medium nets: monolithic edge readout with pair-scaled latents, lr 1e-3
+    # cosine
     for name in ("child", "insurance", "alarm", "water", "mildew", "barley"):
         n = CATALOG[name].num_vertices
         registry[name] = _catalog_experiment(
             name,
             corpus_batch=64,
             steps=20,
+            train=TrainConfig(batch_size=128, epochs=120, learning_rate=1e-3,
+                              lr_schedule="cosine", warmup_epochs=5,
+                              steps_per_call=50, checkpoint_every=5),
             model=ModelConfig(embed_size=64, num_layers=4,
                               latent_size=_readout_latent(n),
                               fc_hidden=64, dropout=0.1, edge_readout=True),
@@ -95,6 +112,9 @@ def build_registry() -> Dict[str, ExperimentConfig]:
             name,
             corpus_batch=32,
             steps=16,
+            train=TrainConfig(batch_size=128, epochs=100, learning_rate=1e-3,
+                              lr_schedule="cosine", warmup_epochs=5,
+                              steps_per_call=50, checkpoint_every=5),
             model=ModelConfig(embed_size=64, num_layers=4,
                               latent_size=_readout_latent(n),
                               fc_hidden=64, dropout=0.1, edge_readout=True,
@@ -108,6 +128,9 @@ def build_registry() -> Dict[str, ExperimentConfig]:
             name,
             corpus_batch=8,
             steps=12,
+            train=TrainConfig(batch_size=16, epochs=20, learning_rate=1e-3,
+                              lr_schedule="cosine", warmup_epochs=2,
+                              steps_per_call=25),
             model=ModelConfig(latent_size=512, edge_readout=True,
                               edge_readout_rank=32),
             search=SearchConfig(

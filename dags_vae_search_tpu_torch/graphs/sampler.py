@@ -1,8 +1,12 @@
-"""Random labeled-DAG generation (Erdős–Rényi with fixed edge count), numpy.
+"""Random labeled-DAG generation (Erdős–Rényi with fixed edge count).
 
-Counterpart of the host-side part of ``dags_vae_search_tpu/graphs/sampler.py``.
-Every function draws from the numpy ``Generator`` in the same order as the
-JAX package, so one seed gives identical arrays in both packages.
+Counterpart of ``dags_vae_search_tpu/graphs/sampler.py``.  The host-side
+functions draw from the numpy ``Generator`` in the same order as the JAX
+package, so one seed gives identical arrays in both packages;
+:func:`generate_corpus` builds a whole curriculum corpus that way.
+:func:`sample_er_dags` is the on-device sampler: it draws from a
+``torch.Generator`` on the generator's device, so it is held to the JAX one
+by its distribution, not bit for bit.
 
 An undirected ER graph with exactly ``m`` edges is oriented from lower to
 higher slot (slot order is topological), rejected unless weakly connected,
@@ -14,6 +18,9 @@ from __future__ import annotations
 from typing import List, Optional, Tuple
 
 import numpy as np
+import torch
+
+from dags_vae_search_tpu_torch.graphs.dag import is_weakly_connected
 
 
 def edge_count_schedule(
@@ -238,3 +245,106 @@ def sample_connected_dags(
         adj[np.repeat(gi, extra), rows[chosen].ravel(), cols[chosen].ravel()] = 1.0
     labels = sample_labels_np(rng, num_graphs, n, label_cardinality, label_method)
     return labels, adj
+
+
+def generate_corpus(
+    rng: np.random.Generator,
+    num_vertices: int,
+    label_cardinality: int,
+    batch_size: int,
+    steps_limit: int,
+    density_limit: float,
+    label_method: str = "sample",
+    max_in_degree: Optional[int] = None,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Full curriculum corpus: ``num_batches * batch_size`` connected random
+    DAGs for each ``(edge_count, num_batches)`` entry of
+    :func:`edge_count_schedule`, concatenated in schedule order.
+
+    With ``max_in_degree``, edge counts above the cap-feasible maximum are
+    clipped to it and entries that then coincide merge their batch counts.
+    Above 64 vertices rejection is intractable, so the constructive
+    :func:`sample_connected_dags` is used; below, :func:`sample_er_batch`
+    with a partial batch when its retry budget runs out.
+    """
+    schedule = edge_count_schedule(num_vertices, density_limit, steps_limit)
+    if max_in_degree is not None:
+        limit = max_edges_capped(num_vertices, max_in_degree)
+        merged: dict = {}
+        for edge_count, num_batches in schedule:
+            clipped = min(edge_count, limit)
+            merged[clipped] = merged.get(clipped, 0) + num_batches
+        schedule = sorted(merged.items())
+    all_labels, all_adj = [], []
+    for edge_count, num_batches in schedule:
+        if num_vertices > 64:
+            labels, adj = sample_connected_dags(
+                rng, num_batches * batch_size, num_vertices, edge_count, label_cardinality,
+                label_method, max_in_degree=max_in_degree,
+            )
+        else:
+            labels, adj = sample_er_batch(
+                rng, num_batches * batch_size, num_vertices, edge_count, label_cardinality,
+                label_method, on_exhaust="partial", max_in_degree=max_in_degree,
+            )
+        all_labels.append(labels)
+        all_adj.append(adj)
+    return np.concatenate(all_labels), np.concatenate(all_adj)
+
+
+def sample_er_dags(
+    generator: torch.Generator,
+    num_graphs: int,
+    num_vertices: int,
+    num_edges: int,
+    label_cardinality: int,
+    label_method: str = "sample",
+    require_connected: bool = True,
+    num_attempts: int = 8,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Batched ER-DAG sampler on ``generator``'s device, fixed shapes.
+
+    Draws ``num_attempts`` independent candidate edge sets per graph (exactly
+    ``num_edges`` upper-triangular pairs each, the top keys of uniform
+    draws) and keeps the first weakly connected one.  Returns ``(labels
+    int32[G, N], adj float32[G, N, N], ok bool[G])``: ``ok`` marks graphs
+    whose budget found a connected candidate; the others carry their first
+    (disconnected) attempt, to be filtered or resampled.
+    """
+    n = num_vertices
+    dev = generator.device
+    rows, cols = torch.triu_indices(n, n, offset=1, device=dev)
+    num_pairs = rows.shape[0]
+    if not 0 <= num_edges <= num_pairs:
+        raise ValueError(f"num_edges {num_edges} outside [0, {num_pairs}]")
+
+    keys = torch.rand((num_attempts, num_graphs, num_pairs), generator=generator, device=dev)
+    chosen = torch.topk(keys, num_edges, dim=-1).indices
+    edges = torch.zeros_like(keys).scatter_(-1, chosen, 1.0)
+    adjs = torch.zeros((num_attempts, num_graphs, n * n), device=dev)
+    adjs[..., rows * n + cols] = edges
+    adjs = adjs.reshape(num_attempts, num_graphs, n, n)
+    if require_connected:
+        oks = is_weakly_connected(adjs)  # [A, G]
+    else:
+        oks = torch.ones((num_attempts, num_graphs), dtype=torch.bool, device=dev)
+    first_ok = torch.argmax(oks.to(torch.int8), dim=0)  # first True per graph (0 if none)
+    adj = adjs[first_ok, torch.arange(num_graphs, device=dev)]
+    ok = oks.any(dim=0)
+
+    if label_method == "sample":
+        if label_cardinality == 1:
+            labels = torch.zeros((num_graphs, n), dtype=torch.int32, device=dev)
+        else:
+            label_keys = torch.rand(
+                (num_graphs, label_cardinality), generator=generator, device=dev
+            )
+            labels = torch.argsort(label_keys, dim=1)[:, :n].to(torch.int32)
+    elif label_method == "choice":
+        labels = torch.randint(
+            0, label_cardinality, (num_graphs, n), generator=generator, device=dev,
+            dtype=torch.int32,
+        )
+    else:
+        raise ValueError("method must be 'sample' or 'choice'")
+    return labels, adj, ok

@@ -12,7 +12,8 @@ and parameter names:
 Slot-indexed DAGs have the identity as topological order, so the position
 one-hot is a constant eye and the positional input is ``[I ‖ A^T]``.
 Dropout and the reparameterization noise are active in ``train()`` mode
-only.
+only, and draw from the ``generator`` the caller passes (the device's
+default generator when None).
 """
 
 from __future__ import annotations
@@ -20,7 +21,6 @@ from __future__ import annotations
 import math
 from typing import Optional, Tuple
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -30,6 +30,7 @@ from dags_vae_search_tpu_torch.models.transformer import (
     Decoder,
     Dense,
     Encoder,
+    dropout,
     round_operand,
 )
 
@@ -121,24 +122,25 @@ class PaceVAE(nn.Module):
 
     # ---------------------------------------------------------------- utils
 
-    def _drop(self, x: torch.Tensor) -> torch.Tensor:
-        return F.dropout(x, self.dropout, self.training)
+    def _drop(self, x: torch.Tensor, generator: Optional[torch.Generator]) -> torch.Tensor:
+        return dropout(x, self.dropout, self.training, generator)
 
-    def _pos_encoding(self, adj: torch.Tensor) -> torch.Tensor:
+    def _pos_encoding(self, adj: torch.Tensor, generator=None) -> torch.Tensor:
         """[I ‖ A^T] -> relu(. W1) -> dropout -> . W2 -> dropout; [B, N, E]."""
         b, n, _ = adj.shape
         eye = torch.eye(n, dtype=adj.dtype, device=adj.device).expand(b, n, n)
         x = torch.cat([eye, adj.transpose(-1, -2)], dim=-1)
         md = self.matmul_dtype
-        h = self._drop(F.relu(round_operand(x, md) @ round_operand(self.pos_w1, md)))
-        return self._drop(round_operand(h, md) @ round_operand(self.pos_w2, md))
+        h = self._drop(F.relu(round_operand(x, md) @ round_operand(self.pos_w1, md)), generator)
+        return self._drop(round_operand(h, md) @ round_operand(self.pos_w2, md), generator)
 
-    def _vertex_features(self, labels: torch.Tensor, adj: torch.Tensor) -> torch.Tensor:
+    def _vertex_features(self, labels: torch.Tensor, adj: torch.Tensor,
+                         generator=None) -> torch.Tensor:
         """concat(label embedding, positional embedding) -> [B, N, d_model]."""
         card = torch.arange(self.cardinality, device=labels.device)
         labels_1h = (labels[..., None] == card).to(torch.float32)
         emb = F.relu(self.label_embed(labels_1h))
-        return torch.cat([emb, self._pos_encoding(adj)], dim=-1)
+        return torch.cat([emb, self._pos_encoding(adj, generator)], dim=-1)
 
     def _add_node(self, h: torch.Tensor) -> torch.Tensor:
         return self.add_node_out(F.relu(self.add_node_hidden(h)))
@@ -172,12 +174,13 @@ class PaceVAE(nn.Module):
     # ------------------------------------------------------------- encoding
 
     def encode_wrapped(
-        self, labels: torch.Tensor, adj: torch.Tensor, allowed: Optional[torch.Tensor] = None
+        self, labels: torch.Tensor, adj: torch.Tensor, allowed: Optional[torch.Tensor] = None,
+        generator: Optional[torch.Generator] = None,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """(mu, logvar) from PACE-wrapped tensors."""
         if allowed is None:
             allowed = attention_allowed(adj)
-        memory = self.encoder(self._vertex_features(labels, adj), allowed)
+        memory = self.encoder(self._vertex_features(labels, adj, generator), allowed, generator)
         flat = memory.reshape(memory.shape[0], self.max_n * self.d_model)
         return self.fc1(flat), self.fc2(flat)
 
@@ -200,11 +203,14 @@ class PaceVAE(nn.Module):
     # ------------------------------------------------------------- decoding
 
     def decoder_output(
-        self, z: torch.Tensor, labels: torch.Tensor, adj: torch.Tensor, allowed: torch.Tensor
+        self, z: torch.Tensor, labels: torch.Tensor, adj: torch.Tensor, allowed: torch.Tensor,
+        generator: Optional[torch.Generator] = None,
     ) -> torch.Tensor:
         """Teacher-forced decoder hidden states [B, N, d] for PACE tensors."""
         memory = self.fc3(z).reshape(z.shape[0], self.max_n, self.d_model)
-        return self.decoder(self._vertex_features(labels, adj), memory, allowed)
+        return self.decoder(
+            self._vertex_features(labels, adj, generator), memory, allowed, generator
+        )
 
     def decode_step(
         self,
@@ -246,9 +252,9 @@ class PaceVAE(nn.Module):
         if allowed is None:
             allowed = attention_allowed(adj)
         n = labels.shape[1]
-        mu, logvar = self.encode_wrapped(labels, adj, allowed)
+        mu, logvar = self.encode_wrapped(labels, adj, allowed, generator)
         z = self.reparameterize(mu, logvar, generator)
-        out = self.decoder_output(z, labels, adj, allowed)
+        out = self.decoder_output(z, labels, adj, allowed, generator)
 
         # Node NLL: position t predicts the label of vertex t+1, t < n-1.
         node_logp = torch.log_softmax(self._add_node(out), dim=-1)
@@ -257,8 +263,9 @@ class PaceVAE(nn.Module):
         node_ll = (node_logp[:, : n - 1, :] * targets).sum()
 
         # Edge BCE over static pairs (i > j, both < n-1): logit from
-        # [out_i ‖ out_j], target adj[j+1, i+1].
-        pi, pj = (torch.as_tensor(a, device=labels.device) for a in np.tril_indices(n - 1, k=-1))
+        # [out_i ‖ out_j], target adj[j+1, i+1].  The pair list is made on
+        # the device (np.tril_indices order): a host copy would wait for it.
+        pi, pj = torch.tril_indices(n - 1, n - 1, offset=-1, device=labels.device)
         logits = self._add_edge(torch.cat([out[:, pi, :], out[:, pj, :]], dim=-1))[..., 0]
         if self.edge_readout:
             logits = logits + self._edge_bias(z, n)[:, pi, pj]

@@ -10,7 +10,9 @@ batch-first ([B, N, D]).  Submodules carry the flax names, so
 The decoder's cross-attention takes the same allow mask as its
 self-attention (the reference decoder passes the target mask to both).
 
-Dropout is active in ``train()`` mode and off in ``eval()`` mode.
+Dropout is active in ``train()`` mode and off in ``eval()`` mode.  It draws
+its masks from the ``generator`` passed down through ``forward`` (the
+device's default generator when None), so a seeded training run repeats.
 """
 
 from __future__ import annotations
@@ -50,6 +52,18 @@ class Dense(nn.Linear):
         )
 
 
+def dropout(
+    x: torch.Tensor, rate: float, training: bool, generator: Optional[torch.Generator] = None
+) -> torch.Tensor:
+    """Inverted dropout: each entry kept with probability ``1 - rate`` and
+    scaled by ``1 / (1 - rate)``; identity when not training or at rate 0."""
+    if not training or rate == 0.0:
+        return x
+    keep = 1.0 - rate
+    scale = torch.empty_like(x).bernoulli_(keep, generator=generator).div_(keep)
+    return x * scale
+
+
 def round_operand(x: torch.Tensor, matmul_dtype: Optional[str]) -> torch.Tensor:
     """``x`` rounded to ``matmul_dtype`` and back to float32 (no-op if None)."""
     if matmul_dtype is None:
@@ -80,6 +94,7 @@ class MultiHeadAttention(nn.Module):
         key: torch.Tensor,  # [B, Nk, D]
         value: torch.Tensor,  # [B, Nk, D]
         allowed: Optional[torch.Tensor] = None,  # bool[B, Nq, Nk] or [Nq, Nk]
+        generator: Optional[torch.Generator] = None,
     ) -> torch.Tensor:
         b, nq, d_model = query.shape
         d_head = d_model // self.num_heads
@@ -98,7 +113,7 @@ class MultiHeadAttention(nn.Module):
             if allowed.dim() == 2:
                 allowed = allowed[None]
             logits = logits.masked_fill(~allowed[:, None, :, :], -1e30)
-        weights = F.dropout(torch.softmax(logits, dim=-1), self.dropout, self.training)
+        weights = dropout(torch.softmax(logits, dim=-1), self.dropout, self.training, generator)
         out = round_operand(weights, md) @ round_operand(v, md)
         return self.out_proj(out.transpose(1, 2).reshape(b, nq, d_model))
 
@@ -116,13 +131,13 @@ class EncoderLayer(nn.Module):
         self.linear2 = Dense(d_model, d_model, matmul_dtype)
         self.norm2 = nn.LayerNorm(d_model, eps=1e-5)
 
-    def _drop(self, x):
-        return F.dropout(x, self.dropout, self.training)
+    def forward(self, src, allowed=None, generator=None):
+        def drop(x):
+            return dropout(x, self.dropout, self.training, generator)
 
-    def forward(self, src, allowed=None):
-        src = self.norm1(src + self._drop(self.self_attn(src, src, src, allowed)))
-        ff = self.linear2(self._drop(F.relu(self.linear1(src))))
-        return self.norm2(src + self._drop(ff))
+        src = self.norm1(src + drop(self.self_attn(src, src, src, allowed, generator)))
+        ff = self.linear2(drop(F.relu(self.linear1(src))))
+        return self.norm2(src + drop(ff))
 
 
 class DecoderLayer(nn.Module):
@@ -141,14 +156,14 @@ class DecoderLayer(nn.Module):
         self.linear2 = Dense(d_model, d_model, matmul_dtype)
         self.norm3 = nn.LayerNorm(d_model, eps=1e-5)
 
-    def _drop(self, x):
-        return F.dropout(x, self.dropout, self.training)
+    def forward(self, tgt, memory, allowed=None, generator=None):
+        def drop(x):
+            return dropout(x, self.dropout, self.training, generator)
 
-    def forward(self, tgt, memory, allowed=None):
-        tgt = self.norm1(tgt + self._drop(self.self_attn(tgt, tgt, tgt, allowed)))
-        tgt = self.norm2(tgt + self._drop(self.cross_attn(tgt, memory, memory, allowed)))
-        ff = self.linear2(self._drop(F.relu(self.linear1(tgt))))
-        return self.norm3(tgt + self._drop(ff))
+        tgt = self.norm1(tgt + drop(self.self_attn(tgt, tgt, tgt, allowed, generator)))
+        tgt = self.norm2(tgt + drop(self.cross_attn(tgt, memory, memory, allowed, generator)))
+        ff = self.linear2(drop(F.relu(self.linear1(tgt))))
+        return self.norm3(tgt + drop(ff))
 
 
 class Encoder(nn.Module):
@@ -161,9 +176,9 @@ class Encoder(nn.Module):
         for i in range(num_layers):
             self.add_module(f"layer{i}", EncoderLayer(d_model, num_heads, dropout, matmul_dtype))
 
-    def forward(self, src, allowed=None):
+    def forward(self, src, allowed=None, generator=None):
         for i in range(self.num_layers):
-            src = getattr(self, f"layer{i}")(src, allowed)
+            src = getattr(self, f"layer{i}")(src, allowed, generator)
         return src
 
 
@@ -177,7 +192,7 @@ class Decoder(nn.Module):
         for i in range(num_layers):
             self.add_module(f"layer{i}", DecoderLayer(d_model, num_heads, dropout, matmul_dtype))
 
-    def forward(self, tgt, memory, allowed=None):
+    def forward(self, tgt, memory, allowed=None, generator=None):
         for i in range(self.num_layers):
-            tgt = getattr(self, f"layer{i}")(tgt, memory, allowed)
+            tgt = getattr(self, f"layer{i}")(tgt, memory, allowed, generator)
         return tgt

@@ -1,14 +1,15 @@
 """Experiment configuration dataclasses.
 
-Counterpart of ``dags_vae_search_tpu/utils/config.py`` for the search
-slice: the model, corpus and search settings.  The training settings arrive
-with the training slice.
+Counterpart of ``dags_vae_search_tpu/utils/config.py``: the model, corpus,
+training and search settings of one experiment.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
 from typing import Optional
+
+from dags_vae_search_tpu_torch.training.train import TrainConfig
 
 
 @dataclass
@@ -73,6 +74,7 @@ class ExperimentConfig:
     simulate_max_card: int = 2
     model: ModelConfig = field(default_factory=ModelConfig)
     corpus: CorpusConfig = field(default_factory=CorpusConfig)
+    train: TrainConfig = field(default_factory=TrainConfig)
     search: SearchConfig = field(default_factory=SearchConfig)
     seed: int = 42
     data_dir: str = "data"

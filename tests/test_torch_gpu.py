@@ -1,5 +1,6 @@
 """Card tests: the CUDA contingency kernels (seg and fused entries) against
-their plain versions, and the port on the card against the port on the CPU.
+their plain versions, and the port on the card against the port on the CPU
+(scoring, decode, the train step and the training loops).
 
 Every test here needs a CUDA card and skips without one; whether there is a
 card is decided inside the ``cuda`` fixture, never at import.  On the card:
@@ -7,7 +8,9 @@ card is decided inside the ``cuda`` fixture, never at import.  On the card:
 
 Counts are integer sums below 2^24, exact in float32 in any atomic order,
 so kernel and plain version must agree bit for bit.  Scores sum the same
-cells in another order on the card: rtol 1e-5.
+cells in another order on the card: rtol 1e-5.  A train step on the card
+sums in another order than on the CPU (cuBLAS, float32 with TF32 off):
+losses and parameters after three Adam steps to rtol 1e-4 / atol 1e-5.
 """
 
 import numpy as np
@@ -19,6 +22,8 @@ from dags_vae_search_tpu_torch.models import decode, pace_vae
 from dags_vae_search_tpu_torch.ops import bic_kernel, bic_torch
 from dags_vae_search_tpu_torch.scoring.bic import BicScorer
 from dags_vae_search_tpu_torch.scoring.catalog import make_synthetic_problem
+from dags_vae_search_tpu_torch.training import data as tdata
+from dags_vae_search_tpu_torch.training import train as ttrain
 
 pytestmark = pytest.mark.gpu
 
@@ -175,3 +180,79 @@ def test_decode_on_card_keeps_its_invariants(cuda):
     assert (torch.sort(rec.labels, dim=-1).values == torch.arange(7, device=cuda)).all()
     assert int(rec.adj.sum(dim=1).max()) <= 3
     assert torch.equal(rec.adj, torch.triu(rec.adj, diagonal=1))
+
+
+TRAIN_MODEL = dict(num_real_vertices=6, real_label_cardinality=6, embed_size=16, num_heads=4,
+                   num_layers=2, latent_size=16, fc_hidden=16, dropout=0.0, epsilon_scale=0.0,
+                   edge_readout=True)
+
+
+def _shift_invariant(name):
+    # zero gradient in exact arithmetic: Adam turns its rounding noise into ±lr steps
+    return name.endswith("k_proj.bias")
+
+
+def test_train_steps_on_card_match_cpu(cuda):
+    assert not torch.backends.cuda.matmul.allow_tf32
+    labels, adj = sampler.sample_er_batch(np.random.default_rng(0), 48, 6, 7, 6)
+    runs = []
+    for dev in ("cpu", cuda):
+        model = pace_vae.make_model(0, dev, **TRAIN_MODEL)
+        trainer = ttrain.Trainer(model, ttrain.TrainConfig(batch_size=16, learning_rate=1e-3))
+        state = trainer.init_state(0)
+        losses = []
+        for i, clip_norm in enumerate((1.0, 1e9, 1e9)):  # the clip active on the first step
+            trainer.config.clip_norm = clip_norm
+            lb = torch.as_tensor(labels[16 * i:16 * (i + 1)], device=dev)
+            ad = torch.as_tensor(adj[16 * i:16 * (i + 1)], device=dev)
+            losses.append(trainer.compute_gradients(state, lb, ad).cpu())
+            state = trainer.apply_gradients(state)
+        runs.append((torch.stack(losses), model.state_dict()))
+    (l_cpu, p_cpu), (l_card, p_card) = runs
+    torch.testing.assert_close(l_card, l_cpu, rtol=1e-4, atol=1e-5)
+    for name, value in p_cpu.items():
+        if not _shift_invariant(name):
+            torch.testing.assert_close(p_card[name].cpu(), value, rtol=1e-4, atol=1e-5,
+                                       msg=name)
+
+
+@pytest.mark.parametrize("packed", [False, True], ids=["dense", "packed"])
+def test_chunked_loop_on_card_equals_per_step_loop(cuda, packed):
+    labels, adj = sampler.sample_er_batch(np.random.default_rng(1), 70, 6, 7, 6)
+    corpus = tdata.pack_corpus(labels, adj) if packed else tdata.Corpus(labels, adj)
+    kwargs = dict(TRAIN_MODEL, dropout=0.1, epsilon_scale=0.01)
+    runs = []
+    for steps_per_call in (1, 3):
+        config = ttrain.TrainConfig(batch_size=16, epochs=2, learning_rate=1e-3, log_every=0,
+                                    steps_per_call=steps_per_call)
+        trainer = ttrain.Trainer(pace_vae.make_model(0, cuda, **kwargs), config)
+        state, hist = trainer.fit(trainer.init_state(3), corpus, log=lambda s: None)
+        runs.append((state.model.state_dict(), hist))
+    (p1, h1), (p2, h2) = runs
+    for key in ("loss_per_graph", "recon_per_graph", "kld_per_graph"):
+        np.testing.assert_allclose([h[key] for h in h2], [h[key] for h in h1], rtol=1e-5)
+    for name, value in p1.items():
+        if not _shift_invariant(name):
+            torch.testing.assert_close(p2[name], value, rtol=1e-5, atol=1e-6, msg=name)
+
+
+@pytest.mark.parametrize("n", [5, 37, 70])
+def test_dense_adj_on_card(cuda, n):
+    dense = (np.random.default_rng(n).random((4, n, n)) < 0.3).astype(np.float32)
+    packed = torch.as_tensor(np.packbits(dense.astype(np.uint8), axis=-1), device=cuda)
+    got = ttrain._dense_adj(packed, n)
+    assert got.device.type == "cuda" and got.dtype == torch.float32
+    assert torch.equal(got.cpu(), torch.as_tensor(dense))
+
+
+def test_sample_er_dags_on_card(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    labels, adj, ok = sampler.sample_er_dags(gen, 512, 12, 14, 12)
+    assert labels.device.type == adj.device.type == ok.device.type == "cuda"
+    assert torch.all(adj.sum(dim=(1, 2)) == 14)
+    assert torch.equal(adj, torch.triu(adj, diagonal=1))
+    from dags_vae_search_tpu_torch.graphs.dag import is_weakly_connected
+
+    assert torch.equal(ok, is_weakly_connected(adj)) and float(ok.float().mean()) > 0.9
+    assert torch.equal(torch.sort(labels, dim=1).values,
+                       torch.arange(12, device=cuda, dtype=torch.int32).expand(512, 12))

@@ -1,5 +1,7 @@
 """The port and ``chip_smoke.py`` stand alone: no JAX, no flax/optax/orbax,
-nothing of the JAX package, and no pandas on the scoring path."""
+nothing of the JAX package, no pandas on the scoring path, and no
+networkx, pandas or pyarrow imported when a module is (the card's machine
+has none of them)."""
 
 import ast
 import subprocess
@@ -29,6 +31,28 @@ def test_source_imports_nothing_of_jax(path):
     assert not bad, f"{path.relative_to(REPO)} imports {bad}"
 
 
+def _module_level_roots(path: Path):
+    """Roots imported by statements that run when the module is imported
+    (outside every function and class body)."""
+    pending = list(ast.parse(path.read_text(), filename=str(path)).body)
+    while pending:
+        node = pending.pop()
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef, ast.ClassDef)):
+            continue
+        if isinstance(node, ast.Import):
+            yield from (alias.name.split(".")[0] for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+        else:
+            pending.extend(ast.iter_child_nodes(node))
+
+
+@pytest.mark.parametrize("path", SOURCES, ids=[str(p.relative_to(REPO)) for p in SOURCES])
+def test_source_imports_no_optional_host_library_at_module_level(path):
+    bad = sorted(set(_module_level_roots(path)) & {"networkx", "pandas", "pyarrow"})
+    assert not bad, f"{path.relative_to(REPO)} imports {bad} at module level"
+
+
 def test_port_has_the_slice_modules():
     modules = {
         "graphs/dag.py", "graphs/sampler.py", "scoring/datasets.py", "scoring/catalog.py",
@@ -36,6 +60,8 @@ def test_port_has_the_slice_modules():
         "scoring/bic.py", "utils/config.py", "experiments/registry.py",
         "models/transformer.py", "models/pace_vae.py", "models/decode.py",
         "search/latent.py", "convert.py",
+        "training/data.py", "training/train.py", "training/checkpoint.py", "training/eval.py",
+        "utils/debug.py", "utils/profiling.py", "graphs/nx_bridge.py",
     }
     assert all((PORT / m).is_file() for m in modules)
 
@@ -64,6 +90,52 @@ print("ok", res.best_score)
 def test_port_runs_a_search_without_jax_or_pandas():
     proc = subprocess.run(
         [sys.executable, "-c", BLOCKED_RUN], cwd=REPO, capture_output=True, text=True,
+        timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.startswith("ok")
+
+
+BLOCKED_TRAIN_RUN = """
+import sys, tempfile
+for name in ("jax", "jaxlib", "flax", "optax", "orbax", "pandas", "pyarrow", "networkx",
+             "dags_vae_search_tpu"):
+    sys.modules[name] = None  # any import of these now raises ImportError
+import numpy as np
+from dags_vae_search_tpu_torch.graphs.sampler import generate_corpus
+from dags_vae_search_tpu_torch.models.pace_vae import make_model
+from dags_vae_search_tpu_torch.scoring.bic import BicScorer
+from dags_vae_search_tpu_torch.scoring.catalog import make_synthetic_problem
+from dags_vae_search_tpu_torch.search.latent import cem_search
+from dags_vae_search_tpu_torch.training import checkpoint, data
+from dags_vae_search_tpu_torch.training.eval import evaluate_corpus
+from dags_vae_search_tpu_torch.training.train import TrainConfig, Trainer
+import dags_vae_search_tpu_torch.graphs.nx_bridge
+import dags_vae_search_tpu_torch.utils.config
+labels, adj = generate_corpus(np.random.default_rng(0), 5, 5, batch_size=4, steps_limit=4,
+                              density_limit=0.6, max_in_degree=2)
+train, test = data.train_test_split(data.Corpus(labels, adj), 0.25, seed=0)
+model = make_model(0, "cpu", num_real_vertices=5, real_label_cardinality=5, embed_size=8,
+                   num_heads=2, num_layers=1, latent_size=8, fc_hidden=8, edge_readout=True)
+trainer = Trainer(model, TrainConfig(batch_size=8, epochs=1, log_every=0, steps_per_call=2))
+state, history = trainer.fit(trainer.init_state(0), train, log=lambda s: None)
+assert np.isfinite(history[0]["loss_per_graph"]), history
+with tempfile.TemporaryDirectory() as tmp:
+    checkpoint.save_checkpoint(tmp, 1, {"params": model.state_dict()})
+    model.load_state_dict(checkpoint.restore_params(tmp, 1, model.state_dict()))
+metrics = evaluate_corpus(model, test, 4, max_batches=1)
+assert metrics["valid_ratio_mode"] == 1.0, metrics
+_, ds = make_synthetic_problem("cancer", num_cases=300)
+res = cem_search(model, BicScorer(ds, max_parents=2, device="cpu"), iters=1, population=16,
+                 device="cpu")
+assert np.isfinite(res.best_score), res
+print("ok", history[0]["loss_per_graph"], res.best_score)
+"""
+
+
+def test_port_trains_evaluates_and_searches_without_optional_libraries():
+    proc = subprocess.run(
+        [sys.executable, "-c", BLOCKED_TRAIN_RUN], cwd=REPO, capture_output=True, text=True,
         timeout=300,
     )
     assert proc.returncode == 0, proc.stderr
