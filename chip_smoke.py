@@ -38,10 +38,26 @@ order; any failure exits non-zero:
    steps (chunked, per-step, per-step, chunked), then a ``torch.profiler``
    window over a few chunked steps: device time and kernel launches per
    step, the device's busy share of the unprofiled step, the top kernels
-   and host operations.
+   and host operations;
+9. the search stage — the blocked and the squaring closure at n = 256, 300
+   and 724 and batches ``CLOSURE_BATCHES`` (equal to each other and to the
+   CPU, each timed), then the JAX package's ``stage_search`` step by step with
+   the trained model and the registry's search settings (two iteration
+   counts cut, ``ISLAND_ITERS`` and ``REFINE_ITERS``): dense hill climbing
+   with restarts, one family-delta climb (the seg entry's path), island CEM
+   in the 64-dim PCA subspace of the encoded test corpus, the polish climb,
+   refine, the predictor dataset and the exact GP, GP-UCB ascent,
+   closed-loop BO and the 512-eval budget comparison.  Each step's wall
+   time, evals/s, best BIC and its float64 re-scores (kernel counts, and
+   host counts without the kernel), peak memory and both entries' launches
+   (from that step alone); then the fused entry held bit-equal to its plain
+   version on a dense-climb chunk and an island population, and the seg
+   entry on three of the delta climb's chunks (first frontier, a one-child
+   refresh, every child of its final graph), each timed.
 
 The last stdout line is ``{"ok": true, "device": {...}}``; the line before
-it holds the kernels' JSON record, and a ``train:`` line holds phases 5-7.
+it holds the kernels' JSON record, a ``train:`` line holds phases 5-8 and a
+``search_stage:`` line phase 9.
 """
 
 from __future__ import annotations
@@ -64,6 +80,15 @@ TRAIN_EPOCHS = 2
 PER_STEP_STEPS = 20
 EVAL_BATCHES = 4
 PROFILE_STEPS = 5
+#: phase 9's cuts of the registry's search settings, iteration counts only:
+#: island CEM 30 -> 6 iterations (one migration, every 5, and the full
+#: temperature anneal), refine 15 -> 5
+ISLAND_ITERS = 6
+REFINE_ITERS = 5
+#: families per seg-entry call of the delta climb (its default chunk)
+DELTA_CHUNK = 4096
+#: graphs per closure call in phase 9a
+CLOSURE_BATCHES = (2, 16, 128, 512)
 #: the train-step check's model: the parity tests' small width, deterministic
 SMALL_TRAIN = dict(num_real_vertices=5, real_label_cardinality=5, embed_size=16, num_heads=4,
                    num_layers=2, latent_size=16, fc_hidden=16, dropout=0.0, epsilon_scale=0.0,
@@ -97,6 +122,30 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def bound_of(nbytes: float, ops: float, clock_hz: float) -> dict:
+    """The least time of a function that moves ``nbytes`` and does ``ops``
+    INT32 operations on the card: the larger of the two times."""
+    bytes_ms = nbytes / H100_BYTES_PER_S * 1e3
+    ops_ms = ops / (H100_INT32_LANES * clock_hz) * 1e3
+    return {"bytes": nbytes, "int_ops": ops, "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def fused_bound(strides_t, codes_cm, w, adj, S: int, clock_hz: float) -> dict:
+    """The fused entry's bound: strides, codes and weights read once, counts
+    written once; per row and unique row its parents' multiply-adds, the
+    child and the bin."""
+    R, U = strides_t.shape[0] * strides_t.shape[1], w.shape[0]
+    nbytes = strides_t.numel() * 4 + codes_cm.numel() * codes_cm.element_size() + U * 4 + R * S * 4
+    return bound_of(nbytes, U * (float((adj > 0).sum()) + 2 * R), clock_hz)
+
+
+def seg_bound(F: int, U: int, S: int, clock_hz: float) -> dict:
+    """The seg entry's bound: F x U cells and U weights read, F x S counts
+    written; one bin add per cell."""
+    return bound_of(F * U * 4 + U * 4 + F * S * 4, F * U, clock_hz)
 
 
 def nvidia_smi(query: str, fmt: str = "csv,noheader") -> str:
@@ -192,18 +241,9 @@ def time_entries(torch, scorer, adj, label: str, clock_hz: float) -> dict:
         "err_fused": err_fused,
     }
     del flat, w_rep, seg
-    int_rate = H100_INT32_LANES * clock_hz
-    parents = float(adj.sum())
-    fused_bytes = strides_t.numel() * 4 + codes_cm.numel() * codes_cm.element_size() + U * 4 + R * S * 4
-    fused_ops = U * (parents + 2 * R)  # per row and unique row: parents' multiply-adds, child, bin
-    seg_bytes = R * U * 4 + U * 4 + R * S * 4
-    seg_ops = R * U  # one bin add per cell
-    for key, nbytes, ops in (("fused", fused_bytes, fused_ops), ("seg", seg_bytes, seg_ops)):
-        bytes_ms = nbytes / H100_BYTES_PER_S * 1e3
-        ops_ms = ops / int_rate * 1e3
-        t[f"{key}_bytes"], t[f"{key}_int_ops"] = nbytes, ops
-        t[f"{key}_bound_ms"] = max(bytes_ms, ops_ms)
-        t[f"{key}_bound_by"] = "bytes" if bytes_ms >= ops_ms else "operations"
+    for key, bound in (("fused", fused_bound(strides_t, codes_cm, w, adj, S, clock_hz)),
+                       ("seg", seg_bound(R, U, S, clock_hz))):
+        t.update({f"{key}_{k}": v for k, v in bound.items()})
     print(f"{label}: " + json.dumps(t))
     return t
 
@@ -326,20 +366,30 @@ def read_launches() -> dict:
     }
 
 
+def check_exact(scorer, best_score: float, cols: np.ndarray) -> float:
+    """The column-indexed best graph ``cols`` re-scored in float64 twice:
+    ``score_exact`` (the card's kernel counts, float64 entropy) must equal
+    the f32 best to 1e-5 relative, and ``score_exact_sparse`` (host group-by
+    counts, no kernel) must equal it to 1e-9 relative, which holds the
+    kernel's counts of every best independently."""
+    check(np.isfinite(best_score), f"best BIC {best_score} is not finite")
+    exact = float(scorer.score_exact(cols[None])[0])
+    check(abs(exact - best_score) <= 1e-5 * abs(exact), f"best {best_score} vs exact {exact}")
+    host = float(scorer.score_exact_sparse(cols[None])[0])
+    check(abs(host - exact) <= 1e-9 * abs(host), f"exact {exact} vs host re-score {host}")
+    return exact
+
+
 def check_best_exact(torch, scorer, result, n: int) -> float:
-    """The best graph re-scored exactly from its labels, in float64 on the
-    card; it must equal the f32 best to 1e-5 relative."""
+    """:func:`check_exact` of a latent search's best, relabelled to columns."""
     from dags_vae_search_tpu_torch.search.latent import _relabel_and_check
 
-    check(np.isfinite(result.best_score), f"best BIC {result.best_score} is not finite")
     check(sorted(result.best_labels.tolist()) == list(range(n)), "best labels are not a permutation")
     best_cols = _relabel_and_check(
         torch.as_tensor(result.best_labels[None], device="cuda"),
         torch.as_tensor(result.best_adj[None], device="cuda"),
     )[0]
-    exact = float(scorer.score_exact(best_cols)[0])
-    check(abs(exact - result.best_score) <= 1e-5 * abs(exact), f"best {result.best_score} vs exact {exact}")
-    return exact
+    return check_exact(scorer, result.best_score, best_cols[0].cpu().numpy())
 
 
 def phase_search(torch, cfg, scorer, clock_hz) -> tuple:
@@ -630,11 +680,336 @@ def phase_step_time(torch, cfg, trainer, state, train_c) -> dict:
     return record
 
 
-def kernel_records(er: dict, decoded: dict, launches_by_path: dict) -> list:
-    """The kernels' records: times, plain times and bounds on the decoded
-    population (the search's inputs), ER-candidate times beside them;
-    ``launches`` sums the main paths' runs, each read on its own."""
-    def record(name, key, plain_key, library_ms, extra):
+def phase_large_closure(torch) -> dict:
+    """Phase 9a: the blocked and the squaring closure on the card at n = 256
+    (the JAX package's switch), 300 and 724, at the batches the model sees
+    there (2; 16, the registry's train batch of the largest nets; 128 and
+    512, encode batches), on both sides of ``BLOCKED_CLOSURE_WORK``: equal
+    to each other at every batch and to the CPU's blocked closure at batch 2
+    (0/1 results: tolerance 0), each timed beside the route
+    ``attention_allowed`` takes."""
+    from dags_vae_search_tpu_torch.graphs import sampler
+    from dags_vae_search_tpu_torch.graphs.dag import BLOCKED_CLOSURE_WORK, transitive_closure
+    from dags_vae_search_tpu_torch.ops.reachability import closure_blocked
+
+    out = {}
+    for n in (256, 300, 724):
+        gen = torch.Generator(device="cuda").manual_seed(SEED + n)
+        adj = sampler.sample_er_dags(gen, max(CLOSURE_BATCHES), n, 2 * n, n,
+                                     require_connected=False, num_attempts=1)[1]
+        want = closure_blocked(adj[:2].cpu())
+        for batch in CLOSURE_BATCHES:
+            adj_b = adj[:batch].contiguous()
+            got = closure_blocked(adj_b)
+            check(torch.equal(got, transitive_closure(adj_b)),
+                  f"n={n}, batch {batch}: blocked closure differs from the squaring closure")
+            check(torch.equal(got[:2].cpu(), want),
+                  f"n={n}: blocked closure on the card differs from the CPU's")
+            out[f"n{n}_b{batch}"] = {
+                "route": "blocked" if batch * n**3 >= BLOCKED_CLOSURE_WORK else "squaring",
+                "blocked_ms": cuda_ms(lambda: closure_blocked(adj_b), reps=3, warmup=1),
+                "squaring_ms": cuda_ms(lambda: transitive_closure(adj_b), reps=3, warmup=1),
+                "reachable_pairs_per_graph": float(got.sum()) / batch}
+            del got, adj_b
+        del adj
+    print(f"closures of DAGs with 2n edges: blocked = squaring at every batch, = CPU at batch 2 "
+          f"(tolerance 0); {json.dumps(out)}")
+    return out
+
+
+def time_family_seg(torch, fam, final_adj: np.ndarray, clock_hz) -> dict:
+    """The seg entry at the delta climb's shapes, each built by the climb's
+    own ``refresh_families``: its first frontier (every single-parent family
+    of the empty graph), a one-child refresh, and a refresh of every child
+    of the climb's final graph (multi-parent families, up to ``max_parents``
+    parents); then a full ``DELTA_CHUNK`` of such families.  Each held
+    bit-equal to the plain version (tolerance 0), timed beside it, the
+    ``torch.bincount`` yardstick and the bound."""
+    from dags_vae_search_tpu_torch.ops import bic_kernel
+    from dags_vae_search_tpu_torch.search.delta_hillclimb import refresh_families
+
+    n = fam.dataset.num_variables
+    empty = np.zeros((n, n), bool)
+    w, S = fam._weights, fam.q_cap * fam.r_max
+    chunks = {key: refresh_families(adj, ys, fam.max_parents)[:2] for key, adj, ys in (
+        ("first", empty, range(n)), ("refresh", empty, [0]), ("final", final_adj > 0, range(n)))}
+    # a full chunk of real families, the shape a climb above n = 64 sends:
+    # the first frontier's and the final refresh's families, cycled
+    children, parents = (np.concatenate([chunks["first"][i], chunks["final"][i]]) for i in (0, 1))
+    chunks["full"] = (np.resize(children, DELTA_CHUNK),
+                      np.resize(parents, (DELTA_CHUNK, parents.shape[1])))
+    t = {}
+    for key, (children, parents) in chunks.items():
+        children, parents = np.asarray(children, np.int32), np.asarray(parents, np.int32)
+        seg = fam.cells(children, parents)[0]
+        F, U = seg.shape
+        got = bic_kernel.contingency_counts_kernel(w, seg, S)
+        want = bic_kernel.contingency_counts_plain(w, seg, S)
+        check(torch.equal(got, want), f"family {key} chunk: seg kernel differs from its plain version")
+        flat = (torch.arange(F, device="cuda", dtype=torch.int64)[:, None] * S + seg).reshape(-1)
+        w_rep = w.expand(F, U).reshape(-1)
+        t[key] = {
+            "F": F, "U": U, "S": S, "max_parents_in_chunk": int((parents >= 0).sum(1).max()),
+            "err": float((got - want).abs().max()),
+            "ms": cuda_ms(lambda: bic_kernel.contingency_counts_kernel(w, seg, S), reps=20),
+            "plain_ms": cuda_ms(lambda: bic_kernel.contingency_counts_plain(w, seg, S), reps=3,
+                                warmup=1),
+            "bincount_ms": cuda_ms(lambda: torch.bincount(flat, weights=w_rep, minlength=F * S),
+                                   reps=3, warmup=1),
+            "cells_ms": cuda_ms(lambda: fam.cells(children, parents), reps=5),
+            **seg_bound(F, U, S, clock_hz),
+        }
+        del flat, w_rep, seg
+    print("seg entry at the delta climb's shapes: " + json.dumps(t))
+    return t
+
+
+def hold_fused(torch, scorer, adj, label: str, clock_hz: float) -> dict:
+    """The fused entry on one input that a search-stage path sends it:
+    bit-equal to its plain version (tolerance 0), timed beside it, with its
+    bound from this input."""
+    from dags_vae_search_tpu_torch.ops import bic_kernel, bic_torch
+
+    strides, _ = bic_torch.parent_config_strides(adj, scorer._cards)
+    args = (strides.transpose(1, 2).contiguous(), scorer._codes_cm, scorer._weights,
+            scorer.q_cap, scorer.r_max)
+    got = bic_kernel.contingency_counts_fused(*args)
+    want = bic_kernel.contingency_counts_fused_plain(*args)
+    check(torch.equal(got, want), f"{label}: fused kernel differs from its plain version")
+    out = {"rows": adj.shape[0] * adj.shape[1], "err": float((got - want).abs().max()),
+           "ms": cuda_ms(lambda: bic_kernel.contingency_counts_fused(*args), reps=10),
+           "plain_ms": cuda_ms(lambda: bic_kernel.contingency_counts_fused_plain(*args),
+                               reps=2, warmup=1),
+           **fused_bound(args[0], args[1], args[2], adj, scorer.q_cap * scorer.r_max, clock_hz)}
+    del got, want
+    describe_rows(torch, (adj > 0).float(), label)
+    print(f"{label}: fused kernel vs plain max |diff| {out['err']} (tolerance 0); "
+          + json.dumps(out))
+    return out
+
+
+def phase_search_stage(torch, cfg, scorer, dataset, model, test_c, clock_hz) -> dict:
+    """Phase 9: the search stage (the JAX package's ``runner.py`` stage_search)
+    at alarm width with the trained model.  Every step runs alone: launches
+    reset before it and read after it, before its best is re-scored.  Then
+    the seg entry is timed at the delta climb's shape."""
+    from dags_vae_search_tpu_torch.scoring.bic import relabel_to_columns
+    from dags_vae_search_tpu_torch.scoring.family_batch import FamilyBatchScorer
+    from dags_vae_search_tpu_torch.search import hillclimb, islands, latent
+    from dags_vae_search_tpu_torch.search.delta_hillclimb import delta_hill_climb
+    from dags_vae_search_tpu_torch.surrogate.dataset import build_predictor_dataset
+    from dags_vae_search_tpu_torch.surrogate.gp import ExactGP
+
+    s, n, seed = cfg.search, cfg.num_vertices, cfg.seed
+    steps: dict = {}
+    fam = FamilyBatchScorer(dataset, max_parents=s.max_parents, q_cap=scorer.q_cap, device="cuda")
+
+    def climb(init_adj=None):
+        return hillclimb.hill_climb(scorer, n, init_adj=init_adj, max_iters=s.hill_climb_iters)
+
+    def climb_exact(res) -> float:
+        check(all(b >= a for a, b in zip(res.history, res.history[1:])), "climb history decreased")
+        return check_exact(scorer, res.best_score, res.best_adj)
+
+    def latent_exact(res) -> float:
+        check(all(b >= a for a, b in zip(res.history, res.history[1:])), "history decreased")
+        return check_best_exact(torch, scorer, res, n)
+
+    def to_columns(labels, adj) -> np.ndarray:
+        out = np.zeros_like(adj)
+        out[np.ix_(labels, labels)] = adj
+        return out
+
+    def step(name, fn, exact_of=None, evals=None, **extra):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        info = {"seconds": seconds, "launches": read_launches(),
+                "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+        if exact_of is not None:
+            evals = res.num_evals
+            info.update(best_bic=res.best_score, best_bic_exact=exact_of(res), evals=evals,
+                        history_len=len(res.history))
+        if evals is not None:
+            info.update(evals=evals, evals_per_s=evals / seconds)
+        info.update(extra)
+        steps[name] = info
+        print(f"search stage {name}: " + json.dumps(info))
+        return res
+
+    # 1. structure space: dense climb with basin-hopping restarts (registry settings)
+    hc = step("hill_climb", lambda: hillclimb.climb_with_restarts(
+        climb, np.random.default_rng(seed + 11), restarts=s.hill_climb_restarts,
+        max_parents=s.max_parents, tie_stop=s.hill_climb_tie_stop), climb_exact)
+    steps["hill_climb"].update(
+        iterations=hc.iterations, converged=bool(hc.converged), restart_history=hc.history,
+        host_reads_per_step=-(-3 * n * n // 4096))
+
+    # 2. one family-delta climb from the empty graph: the seg entry's path
+    delta = step("delta_hill_climb", lambda: delta_hill_climb(
+        fam, n, max_iters=max(s.hill_climb_iters, 4 * n), chunk=DELTA_CHUNK,
+        accept_batch=s.hill_climb_accept_batch), climb_exact)
+    d_info = steps["delta_hill_climb"]
+    check(abs(d_info["best_bic_exact"] - delta.best_score) <= 1.0,
+          f"delta climb's internal score {delta.best_score} vs exact {d_info['best_bic_exact']}")
+    d_info.update(iterations=delta.iterations, converged=bool(delta.converged),
+                  profile=delta.profile, dense_best_bic_exact=steps["hill_climb"]["best_bic_exact"])
+
+    # host glue: encoded test-corpus seeds, their scores in chunks of 256, the PCA subspace
+    t0 = time.perf_counter()
+    seed_n = min(2048, len(test_c))
+    lab_d = torch.as_tensor(test_c.labels[:seed_n], device="cuda")
+    adj_d = torch.as_tensor(test_c.dense_batch(np.arange(seed_n)), device="cuda")
+    mus = latent.encode_mu(model, lab_d, adj_d).cpu().numpy()
+    seed_cols = relabel_to_columns(lab_d, adj_d)
+    seed_scores = np.concatenate([scorer.score(seed_cols[i:i + 256]).cpu().numpy()
+                                  for i in range(0, seed_n, 256)])
+    elite_pick = np.argsort(-seed_scores)[: s.islands]
+    k_sub = int(min(s.island_subspace, mus.shape[1], len(mus) - 1))
+    z_center = mus.mean(axis=0)
+    z_basis = np.linalg.svd(mus - z_center, full_matrices=False)[2][:k_sub]
+    coords = (mus - z_center) @ z_basis.T
+    sigma_vec = coords.std(axis=0) + 1e-6
+    cem_space = dict(basis=z_basis, center=z_center, init_sigma=sigma_vec,
+                     sigma_floor=sigma_vec * 0.05)
+    hc_labels, hc_adj = latent.column_adj_to_labeled(hc.best_adj, np.random.default_rng(seed + 7))
+    hc_mu = latent.encode_mu(model, torch.as_tensor(hc_labels[None], device="cuda"),
+                             torch.as_tensor(hc_adj[None], device="cuda")).cpu().numpy()
+    torch.cuda.synchronize()
+    glue_s = time.perf_counter() - t0
+    print(f"search stage seeds: {seed_n} test graphs encoded and scored, PCA subspace {k_sub}, "
+          f"best seed {float(seed_scores.max()):.2f}, {glue_s:.2f} s")
+
+    # 3-4. island CEM in the subspace (its first population kept for the
+    # fused entry's check below), then the polish climb from its winner
+    island_pop = []
+    score = scorer.score
+
+    def keep_first(adj):
+        if not island_pop:
+            island_pop.append(scorer._adj(adj).clone())
+        return score(adj)
+
+    scorer.score = keep_first
+    try:
+        res = step("island_cem", lambda: islands.island_cem_search(
+            model, scorer, seed=seed + 2, num_islands=s.islands, population=s.island_population,
+            iters=ISLAND_ITERS, init_means=coords[elite_pick], device="cuda", **cem_space),
+            latent_exact, subspace=k_sub)
+    finally:
+        del scorer.score
+    step("island_cem_polished", lambda: climb(init_adj=to_columns(res.best_labels, res.best_adj)),
+         climb_exact)
+
+    # 5. refine around the climb's winner under 8 random topological orders
+    order_rng = np.random.default_rng(seed + 5)
+    pairs = [latent.column_adj_to_labeled(hc.best_adj, order_rng) for _ in range(8)]
+    step("latent_refined", lambda: latent.refine_search(
+        model, scorer, np.stack([p[0] for p in pairs]), np.stack([p[1] for p in pairs]),
+        seed=seed + 3, iters=REFINE_ITERS, population=s.refine_population, device="cuda"),
+        latent_exact)
+
+    # 6. predictor dataset of the test corpus, then the exact GP on it
+    def fit_surrogate():
+        vectors, targets = build_predictor_dataset(
+            model, scorer, test_c.labels, test_c.dense_batch(np.arange(len(test_c))),
+            batch_size=1024)
+        keep = np.isfinite(targets)
+        vectors, targets = vectors[keep], targets[keep]
+        t_fit = time.perf_counter()
+        gp = ExactGP(device="cuda").fit(vectors[:3000], targets[:3000], iters=s.gp_iters)
+        torch.cuda.synchronize()
+        return vectors, targets, gp, time.perf_counter() - t_fit
+
+    vectors, targets, gp, fit_s = step("gp_fit", fit_surrogate)
+    params = [float(p) for p in gp.params]
+    check(np.isfinite(gp.final_nmll) and np.all(np.isfinite(params)),
+          f"GP fit not finite: nmll {gp.final_nmll}, params {params}")
+    pred = gp.predict(vectors[:256])
+    check(np.all(np.isfinite(pred)), "GP predictions are not finite")
+    steps["gp_fit"].update(points=int(min(len(vectors), 3000)), fit_s=fit_s,
+                           fit_steps_per_s=s.gp_iters / fit_s, final_nmll=gp.final_nmll,
+                           params=params, train_mae=float(np.abs(pred - targets[:256]).mean()))
+    order = np.argsort(-targets)
+
+    # 7-8. GP-UCB ascent from the strongest known latents, then closed-loop BO
+    extra = [hc_mu] + ([res.best_z[None]] if np.isfinite(res.best_score) else [])
+    z_init = np.concatenate(extra + [vectors[order[: s.gp_ascent_seeds - 2]]])[: s.gp_ascent_seeds]
+    step("gp_ascent", lambda: latent.gp_ascent_search(
+        model, scorer, gp, seed + 4, z_init, steps=100, ucb_beta=0.5,
+        decode_rounds=s.gp_ascent_rounds, device="cuda"), latent_exact)
+    bo = step("bo", lambda: latent.bo_search(
+        model, scorer, seed + 6, z_init, extra_obs=(vectors[:3000], targets[:3000]),
+        rounds=s.bo_rounds, ucb_beta=1.0, gp_iters=min(s.gp_iters, 200), acq_pool=4096,
+        device="cuda"), latent_exact)
+    check(bo.best_score >= bo.history[0], "BO fell below its seeds' decode")
+    check(bo.num_evals == len(z_init) * (s.bo_rounds + 1), f"BO evals {bo.num_evals}")
+
+    # 9. the same small budget of real evals for each latent strategy
+    budget = s.budget_compare_evals
+    s_n = max(budget // 4, 8)
+    cold_seed = vectors[order[:s_n]]
+    n_isl = min(4, s.islands)
+    pop = max(s_n // n_isl, 8)
+    it_cem = max((budget - s_n) // (n_isl * pop), 1)
+    comp = {
+        "budget_gp_ascent": step("budget_gp_ascent", lambda: latent.gp_ascent_search(
+            model, scorer, gp, seed + 8, cold_seed, steps=100, ucb_beta=0.5,
+            decode_rounds=budget // s_n - 1, device="cuda"), latent_exact),
+        "budget_bo": step("budget_bo", lambda: latent.bo_search(
+            model, scorer, seed + 9, cold_seed, extra_obs=(vectors[:3000], targets[:3000]),
+            rounds=budget // s_n - 1, ucb_beta=1.0, gp_iters=min(s.gp_iters, 200),
+            acq_pool=4096, device="cuda"), latent_exact),
+        "budget_island_cem": step("budget_island_cem", lambda: islands.island_cem_search(
+            model, scorer, seed=seed + 10, num_islands=n_isl, population=pop, iters=it_cem,
+            init_means=coords[elite_pick[:n_isl]],
+            exploit_repeats=max((budget - n_isl * pop * it_cem) // n_isl, 0), device="cuda",
+            **cem_space), latent_exact),
+    }
+    for name, r in comp.items():
+        check(r.num_evals <= budget, f"{name} spent {r.num_evals} evals, budget {budget}")
+    winner = max(comp, key=lambda k: steps[k]["best_bic_exact"])
+
+    for name, info in steps.items():
+        fused, seg = info["launches"]["contingency_counts_fused"], info["launches"]["contingency_counts"]
+        if name == "delta_hill_climb":
+            check(seg > 0 and fused == 0, f"{name}: launches {info['launches']}")
+        else:
+            check(fused > 0 and seg == 0, f"{name}: launches {info['launches']}")
+
+    # the fused entry at the inputs these paths send it: a dense-climb chunk
+    # (the first window of 4,096 moves, hill_climb's default, from the
+    # climb's best graph) and the island CEM's first population of 8 x 512
+    moves = hillclimb._move_candidates(torch.as_tensor(hc.best_adj, device="cuda"))
+    fused_stage = {
+        "climb_chunk": hold_fused(torch, scorer, moves[:4096], "dense climb chunk", clock_hz),
+        "island_population": hold_fused(torch, scorer, island_pop[0], "island CEM population",
+                                        clock_hz),
+    }
+    del moves, island_pop
+    return {"steps": steps, "seeds_s": glue_s, "budget_winner": winner,
+            "cuts": {"island_iters": [s.island_iters, ISLAND_ITERS],
+                     "refine_iters": [s.refine_iters, REFINE_ITERS]},
+            "fused_stage": fused_stage,
+            "family_seg": time_family_seg(torch, fam, delta.best_adj, clock_hz)}
+
+
+def kernel_records(er: dict, decoded: dict, stage: dict, launches_by_path: dict) -> list:
+    """The kernels' records, each at its main path's inputs: the fused entry
+    on the decoded population (the latent search's), the seg entry on the
+    delta climb's first frontier; the other inputs' times beside them (the
+    fused entry's dense-climb chunk and island population, the seg entry's
+    refreshes).  ``launches`` sums the main paths' runs, each read on its
+    own."""
+    family, fused_stage = stage["family_seg"], stage["fused_stage"]
+    stage_err = {"fused": [f["err"] for f in fused_stage.values()],
+                 "seg": [f["err"] for f in family.values()]}
+
+    def record(name, key, plain_key, main, library_ms, extra):
         return {
             "name": name,
             "route": "cuda",
@@ -642,27 +1017,40 @@ def kernel_records(er: dict, decoded: dict, launches_by_path: dict) -> list:
             "replaces": REPLACES,
             "launches": sum(path[name] for path in launches_by_path.values()),
             "launches_by_path": {p: path[name] for p, path in launches_by_path.items()},
-            "max_abs_err": max(er[f"err_{key}"], decoded[f"err_{key}"]),
-            "ms": decoded[f"{key}_ms"],
-            "plain_ms": decoded[plain_key],
-            "bound_ms": decoded[f"{key}_bound_ms"],
-            "bound_by": decoded[f"{key}_bound_by"],
+            "max_abs_err": max(er[f"err_{key}"], decoded[f"err_{key}"], *stage_err[key]),
+            **main,
             "library_ms": library_ms,
-            "inputs": "decoded population",
             "ms_er": er[f"{key}_ms"],
             "plain_ms_er": er[plain_key],
             "bound_ms_er": er[f"{key}_bound_ms"],
-            "bytes": decoded[f"{key}_bytes"],
-            "int_ops": decoded[f"{key}_int_ops"],
             **extra,
         }
 
+    first = family["first"]
     return [
-        record("contingency_counts_fused", "fused", "fused_plain_ms", None, {
+        record("contingency_counts_fused", "fused", "fused_plain_ms", {
+            "ms": decoded["fused_ms"], "plain_ms": decoded["fused_plain_ms"],
+            "bound_ms": decoded["fused_bound_ms"], "bound_by": decoded["fused_bound_by"],
+            "inputs": "decoded population", "bytes": decoded["fused_bytes"],
+            "int_ops": decoded["fused_int_ops"],
+        }, None, {
             "before_ms": decoded["before_ms"], "before_ms_er": er["before_ms"],
             "small_span_ms": decoded["small_span_ms"], "small_span_ms_er": er["small_span_ms"],
+            "stage_climb_chunk": fused_stage["climb_chunk"],
+            "stage_island_population": fused_stage["island_population"],
         }),
-        record("contingency_counts", "seg", "seg_plain_ms", decoded["bincount_ms"], {
+        record("contingency_counts", "seg", "seg_plain_ms", {
+            "ms": first["ms"], "plain_ms": first["plain_ms"], "bound_ms": first["bound_ms"],
+            "bound_by": first["bound_by"],
+            "inputs": f"delta climb's first frontier (F={first['F']}, U={first['U']}, "
+                      f"S={first['S']})",
+            "bytes": first["bytes"], "int_ops": first["int_ops"],
+        }, first["bincount_ms"], {
+            "family_refresh": family["refresh"],
+            "family_final_refresh": family["final"],
+            "family_full_chunk": family["full"],
+            "ms_decoded": decoded["seg_ms"], "plain_ms_decoded": decoded["seg_plain_ms"],
+            "bound_ms_decoded": decoded["seg_bound_ms"], "library_ms_decoded": decoded["bincount_ms"],
             "library_ms_er": er["bincount_ms"],
         }),
     ]
@@ -705,14 +1093,21 @@ def main() -> int:
     train["search"] = phase_train_search(torch, cfg, scorer, state.model)
     train["step_time"] = phase_step_time(torch, cfg, trainer, state, train_c)
     print("train:", json.dumps(train))
+    t_stage = time.perf_counter()
+    closure = phase_large_closure(torch)
+    stage = phase_search_stage(torch, cfg, scorer, dataset, state.model, test_c, clock_hz)
+    stage["large_closure"] = closure
+    stage["seconds"] = time.perf_counter() - t_stage
+    print("search_stage:", json.dumps(stage))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     launches_by_path = {
         "search": search["kernel_launches"],
         "train_chunked": train["chunked"]["launches"],
         "train_per_step": train["per_step"]["launches"],
         "train_search": train["search"]["kernel_launches"],
+        **{f"stage_{name}": info["launches"] for name, info in stage["steps"].items()},
     }
-    print(json.dumps({"kernels": kernel_records(er, decoded, launches_by_path)}))
+    print(json.dumps({"kernels": kernel_records(er, decoded, stage, launches_by_path)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

@@ -6,10 +6,16 @@ module of the same path there and is held against it by
 
 - ``graphs``      — tensor DAG toolkit and the host-side ER-DAG sampler.
 - ``ops``         — BIC engine: plain torch (``bic_torch``) and the
-  contingency-count CUDA kernel (``bic_kernel``, source in ``csrc/``).
-- ``scoring``     — datasets, the bnlearn catalog, ``BicScorer``.
+  contingency-count CUDA kernel (``bic_kernel``, source in ``csrc/``);
+  the blocked closure for large DAGs (``reachability``).
+- ``scoring``     — datasets, the bnlearn catalog, ``BicScorer``, the
+  family table and the family-batch scorer.
 - ``models``      — the PACE transformer DAG-VAE and its sampling decode.
-- ``search``      — latent structure search (``decode_and_score``, CEM).
+- ``training``    — corpus splits, the train loop, checkpoints, eval.
+- ``search``      — latent structure search (``decode_and_score``, CEM,
+  refine, GP ascent, BO, islands), hill climbing (dense and delta) and
+  the exact DP.
+- ``surrogate``   — the GP surrogate and its predictor dataset.
 - ``utils``, ``experiments`` — configs and the experiment registry.
 - ``convert``     — loads a flax parameter tree into the port's modules.
 

@@ -86,21 +86,31 @@ def transitive_closure(adj: torch.Tensor) -> torch.Tensor:
     return closure
 
 
+#: batch x n^3 from which ``attention_allowed`` takes the blocked closure
+#: (the JAX package switches at n > 256 whatever the batch).  On an H100 the
+#: blocked closure's time barely grows with the batch (its tile products
+#: are launch-bound: 1.5-13 ms at n = 256-724 for 2-512 graphs) while the
+#: squaring closure's grows with batch x n^3; they cross near this work
+#: (``chip_smoke.py`` phase 9a times both on each side of it).
+BLOCKED_CLOSURE_WORK = 2**33
+
+
 def attention_allowed(adj: torch.Tensor, n_valid=None) -> torch.Tensor:
     """DAG attention mask: ``allowed[..., q, k]`` — may query q attend key k.
 
     Query q attends key k iff there is a directed path k -> q, or q == k.
     With ``n_valid`` (int or int tensor [...]), only the leading slots are
     real; padded slots attend only each other.  Returns bool[..., N, N].
+    Inputs are canonical (strictly upper-triangular) DAG tensors; from
+    ``BLOCKED_CLOSURE_WORK`` (batch x n^3) on the closure is the blocked one.
     """
     n = adj.shape[-1]
-    if n > 256:
-        raise NotImplementedError(
-            "attention_allowed above 256 vertices needs the blocked closure "
-            "(ops/reachability.closure_blocked), queued in ROADMAP.md "
-            "Queue 1 for a later slice of the port"
-        )
-    reach = transitive_closure(adj) > 0
+    if adj.numel() * n >= BLOCKED_CLOSURE_WORK:
+        from dags_vae_search_tpu_torch.ops.reachability import closure_blocked
+
+        reach = closure_blocked(adj) > 0
+    else:
+        reach = transitive_closure(adj) > 0
     eye = torch.eye(n, dtype=torch.bool, device=adj.device)
     allowed = reach.transpose(-1, -2) | eye
     if n_valid is None:

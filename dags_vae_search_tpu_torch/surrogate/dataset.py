@@ -1,0 +1,57 @@
+"""Predictor (surrogate) dataset builder: graphs -> (latent mu, score).
+
+Counterpart of ``build_predictor_dataset`` in
+``dags_vae_search_tpu/surrogate/dataset.py``: encode a labeled corpus
+through the VAE in batches and score each graph exactly, both on the
+model's and the scorer's device.  The parquet writer and reader wait for
+the port's codec.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from dags_vae_search_tpu_torch.models.pace_vae import PaceVAE
+from dags_vae_search_tpu_torch.search.latent import encode_mu
+
+
+def build_predictor_dataset(
+    model: PaceVAE,
+    scorer,
+    labels: np.ndarray,
+    adj: np.ndarray,
+    batch_size: int = 1024,
+    exact_scores: bool = True,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """(vectors float32[R, nz], targets float64[R]) for a labeled corpus."""
+    dev = next(model.parameters()).device
+    vectors, targets = [], []
+    for start in range(0, labels.shape[0], batch_size):
+        lb = np.asarray(labels[start : start + batch_size])
+        ad = np.asarray(adj[start : start + batch_size], dtype=np.float32)
+        mu = encode_mu(model, torch.as_tensor(lb, device=dev), torch.as_tensor(ad, device=dev))
+        vectors.append(mu.cpu().numpy())
+        relabeled = _relabel(lb, ad)
+        if exact_scores:
+            targets.append(scorer.score_exact(relabeled))
+        else:
+            targets.append(scorer.score(relabeled).cpu().numpy().astype(np.float64))
+    return np.concatenate(vectors), np.concatenate(targets)
+
+
+def _relabel(labels: np.ndarray, adj: np.ndarray) -> np.ndarray:
+    """Permute adjacency so the vertex with label L lands at index L (the
+    scorer's column space).  Unlabeled corpora (labels not a permutation)
+    map identically: slot i IS column i."""
+    b, n = labels.shape
+    is_perm = np.all(np.sort(labels, axis=1) == np.arange(n)[None, :])
+    if not is_perm:
+        return adj
+    out = np.zeros_like(adj)
+    for i in range(b):
+        perm = labels[i]
+        out[i][np.ix_(perm, perm)] = adj[i]
+    return out

@@ -256,3 +256,87 @@ def test_sample_er_dags_on_card(cuda):
     assert torch.equal(ok, is_weakly_connected(adj)) and float(ok.float().mean()) > 0.9
     assert torch.equal(torch.sort(labels, dim=1).values,
                        torch.arange(12, device=cuda, dtype=torch.int32).expand(512, 12))
+
+
+def _alarm_families(fam, count, seed):
+    """Families of the delta climb's shape: a child and up to max_parents
+    parents padded with -1."""
+    n = fam.dataset.num_variables
+    rng = np.random.default_rng(seed)
+    children = rng.integers(0, n, size=count).astype(np.int32)
+    parents = np.full((count, fam.max_parents + 1), -1, np.int32)
+    for i, y in enumerate(children):
+        k = rng.integers(0, fam.max_parents + 2)
+        parents[i, :k] = rng.choice(np.delete(np.arange(n), y), size=k, replace=False)
+    return children, parents
+
+
+def test_family_batch_scorer_on_card_equals_cpu(cuda):
+    from dags_vae_search_tpu_torch.scoring.family_batch import FamilyBatchScorer
+
+    _, ds = make_synthetic_problem("alarm")
+    card = FamilyBatchScorer(ds, max_parents=8, q_cap=256, device=cuda)
+    cpu = FamilyBatchScorer(ds, max_parents=8, q_cap=256, device="cpu")
+    children, parents = _alarm_families(cpu, 512, seed=3)
+    seg_card, q_card = card.cells(children, parents)
+    seg_cpu, q_cpu = cpu.cells(children, parents)
+    assert torch.equal(seg_card.cpu(), seg_cpu) and torch.equal(q_card.cpu(), q_cpu)
+    S = card.q_cap * card.r_max
+    before = bic_kernel.contingency_counts_kernel.launches
+    counts_card = bic_kernel.contingency_counts_kernel(card._weights, seg_card, S)
+    assert bic_kernel.contingency_counts_kernel.launches == before + 1
+    assert torch.equal(counts_card.cpu(), bic_kernel.contingency_counts_plain(cpu._weights, seg_cpu, S))
+    s_card, s_cpu = card.score(children, parents).cpu(), cpu.score(children, parents)
+    assert torch.equal(torch.isinf(s_card), torch.isinf(s_cpu)) and torch.isinf(s_cpu).any()
+    fin = torch.isfinite(s_cpu)
+    torch.testing.assert_close(s_card[fin], s_cpu[fin], rtol=1e-5, atol=0.0)
+
+
+@pytest.mark.parametrize("n", [300, 724])
+def test_closure_blocked_on_card_equals_cpu(cuda, n):
+    from dags_vae_search_tpu_torch.graphs.dag import attention_allowed
+    from dags_vae_search_tpu_torch.ops.reachability import closure_blocked
+
+    _, adj = sampler.sample_er_batch(np.random.default_rng(n), 2, n, 2 * n, n,
+                                     require_connected=False)
+    adj = torch.as_tensor(adj)
+    want = closure_blocked(adj)
+    got = closure_blocked(adj.to(cuda))
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(attention_allowed(adj.to(cuda)).cpu(), attention_allowed(adj))
+
+
+def test_exact_gp_fit_on_card_matches_cpu(cuda):
+    from dags_vae_search_tpu_torch.surrogate.gp import ExactGP
+
+    rng = np.random.default_rng(4)
+    x = rng.normal(size=(300, 32)).astype(np.float32)
+    y = np.sin(x[:, 0]) + 0.5 * x[:, 1] ** 2 - 9000.0
+    fits = [ExactGP(device=dev).fit(x, y, iters=50) for dev in ("cpu", cuda)]
+    (cpu, card) = fits
+    assert np.isfinite(card.final_nmll)
+    # cuSOLVER and LAPACK factorise in another order; Adam carries it: rtol 1e-3
+    for a, b in zip(card.params, cpu.params):
+        assert float(a) == pytest.approx(float(b), rel=1e-3)
+    xs = rng.normal(size=(64, 32)).astype(np.float32)
+    mu_card, sd_card = card.predict_with_std(xs)
+    mu_cpu, sd_cpu = cpu.predict_with_std(xs)
+    np.testing.assert_allclose(mu_card, mu_cpu, rtol=1e-3)
+    np.testing.assert_allclose(sd_card, sd_cpu, rtol=1e-2)
+
+
+def test_hill_climb_on_card_matches_cpu(cuda):
+    from dags_vae_search_tpu_torch.search.hillclimb import hill_climb
+
+    _, ds = make_synthetic_problem("child")
+    card = BicScorer(ds, max_parents=8, device=cuda)
+    cpu = BicScorer(ds, max_parents=8, device="cpu", impl="plain")
+    n = ds.num_variables
+    got = hill_climb(card, n, max_iters=3)
+    want = hill_climb(cpu, n, max_iters=3)
+    # equal float32 scores of score-equivalent moves may break ties apart:
+    # the histories agree, the graphs score the same in float64
+    assert got.iterations == want.iterations == 3 and got.num_evals == want.num_evals
+    np.testing.assert_allclose(got.history, want.history, rtol=1e-5, atol=1e-3)
+    exact = cpu.score_exact(np.stack([got.best_adj, want.best_adj]))
+    assert exact[0] == pytest.approx(exact[1], rel=1e-9)

@@ -60,9 +60,31 @@ def test_attention_allowed_partial_graphs_match_jax():
     )
 
 
-def test_attention_allowed_above_256_is_queued():
-    with pytest.raises(NotImplementedError, match="closure_blocked"):
-        tdag.attention_allowed(torch.zeros(1, 257, 257))
+def test_attention_allowed_above_256_is_queued(monkeypatch):
+    """Above 256 vertices the mask no longer raises and equals the JAX mask
+    (which takes the blocked closure there) by either closure: the blocked
+    one from ``BLOCKED_CLOSURE_WORK`` (batch x n^3) on, the squaring one
+    below it."""
+    from dags_vae_search_tpu_torch.ops import reachability
+
+    calls = []
+    blocked = reachability.closure_blocked
+
+    def spy(adj, *args, **kwargs):
+        calls.append(adj.shape[-1])
+        return blocked(adj, *args, **kwargs)
+
+    monkeypatch.setattr(reachability, "closure_blocked", spy)
+    _, adj = jsampler.sample_er_batch(np.random.default_rng(3), 1, 257, 300, 257,
+                                      require_connected=False)
+    want = jdag.attention_allowed(jnp.asarray(adj))
+    _same(want, tdag.attention_allowed(torch.as_tensor(adj)))
+    assert calls == []  # one graph of 257 vertices is below the work: squaring
+    monkeypatch.setattr(tdag, "BLOCKED_CLOSURE_WORK", 257**3)
+    _same(want, tdag.attention_allowed(torch.as_tensor(adj)))
+    assert calls == [257]
+    tdag.attention_allowed(torch.as_tensor(adj[:, :256, :256]))
+    assert calls == [257]  # 256^3 is below the lowered work: squaring
 
 
 def test_pace_wrap_unwrap_and_validity_match_jax():

@@ -62,6 +62,9 @@ def test_port_has_the_slice_modules():
         "search/latent.py", "convert.py",
         "training/data.py", "training/train.py", "training/checkpoint.py", "training/eval.py",
         "utils/debug.py", "utils/profiling.py", "graphs/nx_bridge.py",
+        "ops/reachability.py", "scoring/family_table.py", "scoring/family_batch.py",
+        "search/exact.py", "search/hillclimb.py", "search/delta_hillclimb.py",
+        "search/islands.py", "surrogate/gp.py", "surrogate/dataset.py",
     }
     assert all((PORT / m).is_file() for m in modules)
 
@@ -137,6 +140,62 @@ def test_port_trains_evaluates_and_searches_without_optional_libraries():
     proc = subprocess.run(
         [sys.executable, "-c", BLOCKED_TRAIN_RUN], cwd=REPO, capture_output=True, text=True,
         timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.startswith("ok")
+
+
+BLOCKED_SEARCH_STAGE_RUN = """
+import sys
+for name in ("jax", "jaxlib", "flax", "optax", "orbax", "pandas", "pyarrow", "networkx",
+             "dags_vae_search_tpu"):
+    sys.modules[name] = None  # any import of these now raises ImportError
+import numpy as np
+import torch
+from dags_vae_search_tpu_torch.graphs.dag import attention_allowed
+from dags_vae_search_tpu_torch.models.pace_vae import make_model
+from dags_vae_search_tpu_torch.scoring.bic import BicScorer
+from dags_vae_search_tpu_torch.scoring.catalog import make_synthetic_problem
+from dags_vae_search_tpu_torch.scoring.family_batch import FamilyBatchScorer
+from dags_vae_search_tpu_torch.scoring.family_table import FamilyTableScorer
+from dags_vae_search_tpu_torch.search import exact, hillclimb, islands, latent
+from dags_vae_search_tpu_torch.search.delta_hillclimb import delta_hill_climb
+from dags_vae_search_tpu_torch.surrogate.dataset import build_predictor_dataset
+from dags_vae_search_tpu_torch.surrogate.gp import SGPR, ExactGP
+assert attention_allowed(torch.zeros(1, 260, 260)).all(dim=-1).sum() == 0
+_, ds = make_synthetic_problem("cancer", num_cases=300)
+scorer = BicScorer(ds, max_parents=2, device="cpu")
+table = FamilyTableScorer(ds, max_parents=2, base_scorer=scorer)
+opt = exact.exact_search(scorer, 5, max_parents=2)
+hc = hillclimb.climb_with_restarts(lambda a: hillclimb.hill_climb(table, 5, init_adj=a),
+                                   np.random.default_rng(0), restarts=2, max_parents=2)
+dh = delta_hill_climb(FamilyBatchScorer(ds, max_parents=2, device="cpu"), 5)
+assert abs(hc.best_score - opt.best_score) < 1.0 and abs(dh.best_score - opt.best_score) < 1.0
+model = make_model(0, "cpu", num_real_vertices=5, real_label_cardinality=5, embed_size=8,
+                   num_heads=2, num_layers=1, latent_size=8, fc_hidden=8, edge_readout=True)
+labels = np.stack([np.random.default_rng(i).permutation(5) for i in range(12)]).astype(np.int32)
+adj = np.triu(np.random.default_rng(0).random((12, 5, 5)) < 0.3, 1).astype(np.float32)
+vectors, targets = build_predictor_dataset(model, scorer, labels, adj, batch_size=8)
+keep = np.isfinite(targets)
+gp = ExactGP(device="cpu").fit(vectors[keep], targets[keep], iters=10)
+SGPR(num_inducing=4, device="cpu").fit(vectors[keep], targets[keep], iters=5)
+res = [islands.island_cem_search(model, scorer, num_islands=2, population=8, iters=2,
+                                 exploit_repeats=2, device="cpu"),
+       latent.refine_search(model, scorer, labels[:2], adj[:2], iters=1, population=16,
+                            device="cpu"),
+       latent.gp_ascent_search(model, scorer, gp, 0, vectors[:4], steps=3, decode_rounds=1,
+                               device="cpu"),
+       latent.bo_search(model, scorer, 0, vectors[:4], rounds=1, ascent_steps=2, gp_iters=5,
+                        device="cpu")]
+assert all(np.isfinite(r.best_score) for r in res), res
+print("ok", hc.best_score, [r.best_score for r in res])
+"""
+
+
+def test_port_runs_the_search_stage_without_optional_libraries():
+    proc = subprocess.run(
+        [sys.executable, "-c", BLOCKED_SEARCH_STAGE_RUN], cwd=REPO, capture_output=True,
+        text=True, timeout=300,
     )
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.startswith("ok")
