@@ -53,17 +53,35 @@ order; any failure exits non-zero:
    (from that step alone); then the fused entry held bit-equal to its plain
    version on a dense-climb chunk and an island population, and the seg
    entry on three of the delta climb's chunks (first frontier, a one-child
-   refresh, every child of its final graph), each timed.
+   refresh, every child of its final graph), each timed;
+10. the pipeline — the port's ``ExperimentRunner`` on the alarm experiment
+   in a temporary data dir on the card, with phase 5's and phase 9's cuts
+   (corpus batch 8, 2 epochs, checkpointed at the end of them, island CEM
+   and refine iterations): generate, split, train, eval (exact equality, no
+   networkx), predictor, gp, search, roundtrip, each stage's wall time, peak
+   memory and both entries' launches read from that stage alone; then the
+   CLI (``gp roundtrip``) in a subprocess over the same artifacts and the
+   results page.  Checked: the npz corpus and splits read back bit-equal to
+   phase 5's, every report in the runs dir and its ``reports_torch/``
+   mirror, none skipped, the climb's best equal to its host re-score
+   (``score_exact_sparse``) and to phase 9's to 1e-9, every latent best
+   finite, the fused entry launched by search and predictor, the page naming
+   the card.  Last, the numpy decode of npz parts at link width (n = 724),
+   timed on the host.
 
 The last stdout line is ``{"ok": true, "device": {...}}``; the line before
-it holds the kernels' JSON record, a ``train:`` line holds phases 5-8 and a
-``search_stage:`` line phase 9.
+it holds the kernels' JSON record, a ``train:`` line holds phases 5-8, a
+``search_stage:`` line phase 9 and a ``pipeline:`` line phase 10.
 """
 
 from __future__ import annotations
 
+import contextlib
+import copy
 import dataclasses
+import io
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -89,6 +107,10 @@ REFINE_ITERS = 5
 DELTA_CHUNK = 4096
 #: graphs per closure call in phase 9a
 CLOSURE_BATCHES = (2, 16, 128, 512)
+#: phase 10's runner stages, in order
+PIPELINE_STAGES = ("generate", "split", "train", "eval", "predictor", "gp", "search", "roundtrip")
+#: phase 10's codec timing: link width, graphs (in two npz parts), repeats
+LINK_N, LINK_GRAPHS, LINK_REPS = 724, 64, 3
 #: the train-step check's model: the parity tests' small width, deterministic
 SMALL_TRAIN = dict(num_real_vertices=5, real_label_cardinality=5, embed_size=16, num_heads=4,
                    num_layers=2, latent_size=16, fc_hidden=16, dropout=0.0, epsilon_scale=0.0,
@@ -550,7 +572,7 @@ def phase_train(torch, cfg) -> tuple:
         "per_step": {"history": per_step, **per_step_run},
         "chunked_speedup": per_step[0]["step_ms"] / chunked[-1]["step_ms"],
     }
-    return trainer, state, train_c, test_c, record
+    return trainer, state, data.Corpus(labels, adj), train_c, test_c, record
 
 
 def phase_checkpoint_eval(torch, cfg, model, test_c) -> dict:
@@ -998,6 +1020,186 @@ def phase_search_stage(torch, cfg, scorer, dataset, model, test_c, clock_hz) -> 
             "family_seg": time_family_seg(torch, fam, delta.best_adj, clock_hz)}
 
 
+def _skipped(tree, path="") -> list:
+    """Paths of the ``"skipped (...)"`` strings in a report tree."""
+    if isinstance(tree, dict):
+        return [p for k, v in tree.items() for p in _skipped(v, f"{path}/{k}")]
+    if isinstance(tree, list):
+        return [p for i, v in enumerate(tree) for p in _skipped(v, f"{path}/{i}")]
+    return [path] if isinstance(tree, str) and tree.startswith("skipped (") else []
+
+
+def time_link_decode() -> dict:
+    """The numpy decode of npz parts at link width: ``LINK_GRAPHS`` random
+    DAGs with n = 724 (about 2n edges each) written in two parts, then read
+    back (load + decode) and decoded alone from loaded columns, each
+    ``LINK_REPS`` times on the host clock; the read must be bit-equal."""
+    from dags_vae_search_tpu_torch.graphs import codec
+
+    rng = np.random.default_rng(SEED)
+    n = LINK_N
+    labels = np.stack([rng.permutation(n) for _ in range(LINK_GRAPHS)]).astype(np.int32)
+    adj = np.triu(rng.random((LINK_GRAPHS, n, n), dtype=np.float32) < 4.0 / n, 1).astype(np.float32)
+    with tempfile.TemporaryDirectory() as tmp:
+        codec.write_dataset(tmp, labels, adj, rows_per_part=LINK_GRAPHS // 2)
+        parts = codec.dataset_parts(tmp)
+        read_s = []
+        for _ in range(LINK_REPS):
+            t0 = time.perf_counter()
+            got = codec.read_dataset(tmp)
+            read_s.append(time.perf_counter() - t0)
+        check(np.array_equal(got[0], labels) and np.array_equal(got[1], adj),
+              "link-width npz corpus read back differs")
+        with np.load(parts[0]) as blob:
+            cols = [blob[f"l{i}"] for i in range(n)]
+            bits = {i: blob[f"e{i}"] for i in range(1, n)}
+        rows = cols[0].shape[0]
+        decode_s = []
+        for _ in range(LINK_REPS):
+            t0 = time.perf_counter()
+            codec.decode_columns(cols, bits, rows)
+            decode_s.append(time.perf_counter() - t0)
+    out = {"n": n, "graphs": LINK_GRAPHS, "parts": len(parts), "edges_per_graph": float(adj.sum()) / LINK_GRAPHS,
+           "read_s": read_s, "decode_s_per_part": decode_s, "decode_rows_per_part": rows,
+           "decode_graphs_per_s": rows / min(decode_s),
+           "dense_mb_per_s": rows * n * n * 4 / min(decode_s) / 1e6}
+    print("numpy decode at link width (host): " + json.dumps(out))
+    return out
+
+
+def phase_pipeline(torch, cfg, name: str, corpus, train_c, test_c, hc_best: float) -> dict:
+    """Phase 10: the port's ``ExperimentRunner`` through every stage on the
+    card, its CLI in a subprocess, the results page; checks in the module
+    docstring.  ``corpus``, ``train_c`` and ``test_c`` are phase 5's,
+    ``hc_best`` is phase 9's dense climb best (float64)."""
+    from dags_vae_search_tpu_torch.experiments import results
+    from dags_vae_search_tpu_torch.experiments.runner import ExperimentRunner
+    from dags_vae_search_tpu_torch.graphs import codec
+    from dags_vae_search_tpu_torch.search import hillclimb
+    from dags_vae_search_tpu_torch.training import data
+
+    cfg = copy.deepcopy(cfg)
+    cfg.corpus.batch_size = CORPUS_BATCH
+    cfg.search.island_iters, cfg.search.refine_iters = ISLAND_ITERS, REFINE_ITERS
+    # the registry checkpoints every 5 epochs; the cut run ends on one
+    cfg.train.checkpoint_every = TRAIN_EPOCHS
+    stages: dict = {}
+    climbs: list = []
+    with tempfile.TemporaryDirectory() as tmp:
+        runs = os.path.join(tmp, "runs")
+        runner = ExperimentRunner(cfg, data_dir=runs, device="cuda")
+        check(runner.reports_root == os.path.join(tmp, "reports_torch", cfg.name),
+              f"reports mirror at {runner.reports_root}")
+
+        def run(stage, fn):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            stages[stage] = {"seconds": time.perf_counter() - t0,
+                             "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+                             "launches": read_launches()}
+
+        run("generate", runner.stage_generate)
+        labels, adj = codec.read_dataset(runner.path("corpus"))
+        check(np.array_equal(labels, corpus.labels) and np.array_equal(adj, corpus.adj),
+              "the npz corpus read back differs from the generated tensors")
+        run("split", runner.stage_split)
+        for split, want in (("train", train_c), ("test", test_c)):
+            got = data.load_corpus(runner.path(split))
+            check(np.array_equal(got.labels, want.labels) and np.array_equal(got.adj, want.adj),
+                  f"the npz {split} split differs from phase 5's")
+        run("train", lambda: runner.stage_train(epochs=TRAIN_EPOCHS))
+        run("eval", lambda: runner.stage_eval(use_isomorphism=False))
+        run("predictor", runner.stage_predictor)
+        run("gp", runner.stage_gp)
+        # keep the structure the dense climb returns, for its host re-score
+        climb_with_restarts = hillclimb.climb_with_restarts
+
+        def kept(*args, **kwargs):
+            climbs.append(climb_with_restarts(*args, **kwargs))
+            return climbs[-1]
+
+        hillclimb.climb_with_restarts = kept
+        try:
+            run("search", runner.stage_search)
+        finally:
+            hillclimb.climb_with_restarts = climb_with_restarts
+        run("roundtrip", runner.stage_roundtrip)
+
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "dags_vae_search_tpu_torch.experiments.runner", cfg.name, "gp",
+             "roundtrip", "--data-dir", runs],
+            cwd=Path(__file__).resolve().parent, capture_output=True, text=True, timeout=600,
+        )
+        cli_s = time.perf_counter() - t0
+        check(proc.returncode == 0, f"the runner CLI exited {proc.returncode}: {proc.stderr[-3000:]}")
+        page_path = os.path.join(tmp, "RESULTS_torch.md")
+        with contextlib.redirect_stdout(io.StringIO()):
+            results.main([runs, page_path])
+        with open(page_path) as fh:
+            page = fh.read()
+
+        reports = {}
+        for stage in PIPELINE_STAGES:
+            for root in (runner.root, runner.reports_root):
+                path = os.path.join(root, f"report_{stage}.json")
+                check(os.path.isfile(path), f"missing {path}")
+            with open(os.path.join(runner.root, f"report_{stage}.json")) as fh:
+                reports[stage] = json.load(fh)
+        host_scorer = runner.scorer()
+    skipped = _skipped(reports)
+    check(not skipped, f"skipped report entries: {skipped}")
+    search = reports["search"]
+    hc_bic = search["hill_climb"]["best_bic"]
+    check(len(climbs) == 1, f"{len(climbs)} dense climbs in the search stage")
+    host = float(host_scorer.score_exact_sparse(climbs[0].best_adj[None])[0])
+    check(np.isfinite(hc_bic) and abs(hc_bic - host) <= 1e-9 * abs(host),
+          f"climb best {hc_bic} vs host re-score {host}")
+    check(abs(hc_bic - hc_best) <= 1e-9 * abs(hc_best), f"climb best {hc_bic} vs phase 9's {hc_best}")
+    latent = {k: search[k]["best_bic_exact"] for k in ("island_cem", "latent_refined", "gp_ascent", "bo")}
+    latent.update({f"budget_{k}": search["budget_comparison"][k]["best_bic_exact"]
+                   for k in ("gp_ascent", "bo", "island_cem")})
+    check(all(v is not None and np.isfinite(v) for v in latent.values()), f"latent bests {latent}")
+    check(np.isfinite(reports["eval"]["valid_ratio_mode"]), "valid_ratio_mode is not finite")
+    check(np.isfinite(reports["gp"]["mape"]), "GP mape is not finite")
+    for stage in ("search", "predictor"):
+        check(stages[stage]["launches"]["contingency_counts_fused"] > 0, f"{stage}: no fused launch")
+    check(name in page, "the results page does not name the card")
+    check(all(r["device"].startswith(name) for r in reports.values()), "a report names another device")
+
+    record = {
+        "stages": stages,
+        "cli_gp_roundtrip_s": cli_s,
+        "cuts": {"corpus_batch": [64, CORPUS_BATCH], "epochs": [120, TRAIN_EPOCHS],
+                 "checkpoint_every": [5, TRAIN_EPOCHS],
+                 "island_iters": [30, ISLAND_ITERS], "refine_iters": [15, REFINE_ITERS]},
+        "device": reports["search"]["device"],
+        "rows": {"corpus": reports["generate"]["rows"], "train": reports["split"]["train_rows"],
+                 "test": reports["split"]["test_rows"]},
+        "train_final": reports["train"]["final"],
+        "eval": {k: v for k, v in reports["eval"].items() if k not in ("stage", "time", "device")},
+        "gp": {k: reports["gp"][k] for k in ("model", "train_points", "mae", "mape")},
+        "hill_climb": {"best_bic": hc_bic, "host_rescore": host, "phase9": hc_best,
+                       "evals_per_sec": search["hill_climb"]["evals_per_sec"]},
+        "latent_bests_exact": latent,
+        "budget_winner": search["budget_comparison"].get("winner"),
+        "roundtrip": {k: reports["roundtrip"][k] for k in
+                      ("true_bic", "gp_predicted_bic", "relative_error", "decode_valid")},
+        "results_header": page.splitlines()[0],
+        "link_decode": time_link_decode(),
+    }
+    summary = {s: {"wall_s": round(v["seconds"], 3), "peak_gib": round(v["peak_mem_gib"], 3),
+                   "fused": v["launches"]["contingency_counts_fused"],
+                   "seg": v["launches"]["contingency_counts"]} for s, v in stages.items()}
+    print(f"pipeline stages ({nvidia_smi('name,power.limit')}): " + json.dumps(summary)
+          + f"; CLI gp roundtrip {cli_s:.2f} s")
+    return record
+
+
 def kernel_records(er: dict, decoded: dict, stage: dict, launches_by_path: dict) -> list:
     """The kernels' records, each at its main path's inputs: the fused entry
     on the decoded population (the latent search's), the seg entry on the
@@ -1088,7 +1290,7 @@ def main() -> int:
     phase_train_card_vs_cpu(torch)
     search, decoded = phase_search(torch, cfg, scorer, clock_hz)
     print("search:", json.dumps(search))
-    trainer, state, train_c, test_c, train = phase_train(torch, cfg)
+    trainer, state, corpus, train_c, test_c, train = phase_train(torch, cfg)
     train["eval"] = phase_checkpoint_eval(torch, cfg, state.model, test_c)
     train["search"] = phase_train_search(torch, cfg, scorer, state.model)
     train["step_time"] = phase_step_time(torch, cfg, trainer, state, train_c)
@@ -1099,6 +1301,11 @@ def main() -> int:
     stage["large_closure"] = closure
     stage["seconds"] = time.perf_counter() - t_stage
     print("search_stage:", json.dumps(stage))
+    t_pipe = time.perf_counter()
+    pipeline = phase_pipeline(torch, cfg, name, corpus, train_c, test_c,
+                              stage["steps"]["hill_climb"]["best_bic_exact"])
+    pipeline["seconds"] = time.perf_counter() - t_pipe
+    print("pipeline:", json.dumps(pipeline))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     launches_by_path = {
         "search": search["kernel_launches"],
@@ -1106,6 +1313,7 @@ def main() -> int:
         "train_per_step": train["per_step"]["launches"],
         "train_search": train["search"]["kernel_launches"],
         **{f"stage_{name}": info["launches"] for name, info in stage["steps"].items()},
+        **{f"pipeline_{name}": info["launches"] for name, info in pipeline["stages"].items()},
     }
     print(json.dumps({"kernels": kernel_records(er, decoded, stage, launches_by_path)}))
     print(json.dumps({"ok": True, "device": {

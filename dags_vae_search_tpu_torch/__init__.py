@@ -4,7 +4,8 @@ The JAX package beside it is the reference: every module here mirrors the
 module of the same path there and is held against it by
 ``tests/test_torch_*.py``.  The port imports neither JAX nor the JAX package.
 
-- ``graphs``      — tensor DAG toolkit and the host-side ER-DAG sampler.
+- ``graphs``      — tensor DAG toolkit, the host-side ER-DAG sampler and the
+  corpus codec (npz parts, or parquet through pyarrow).
 - ``ops``         — BIC engine: plain torch (``bic_torch``) and the
   contingency-count CUDA kernel (``bic_kernel``, source in ``csrc/``);
   the blocked closure for large DAGs (``reachability``).
@@ -16,7 +17,10 @@ module of the same path there and is held against it by
   refine, GP ascent, BO, islands), hill climbing (dense and delta) and
   the exact DP.
 - ``surrogate``   — the GP surrogate and its predictor dataset.
-- ``utils``, ``experiments`` — configs and the experiment registry.
+- ``utils``       — configs, profiling (``trace``), NaN guards, DAG drawing.
+- ``experiments`` — the registry, ``ExperimentRunner`` and its CLI
+  (``python -m dags_vae_search_tpu_torch.experiments.runner``), the results
+  page.
 - ``convert``     — loads a flax parameter tree into the port's modules.
 
 Entry points run on ``device="cuda"`` unless the caller names another

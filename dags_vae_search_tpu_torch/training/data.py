@@ -3,8 +3,8 @@
 Counterpart of ``dags_vae_search_tpu/training/data.py``, in numpy.  Every
 permutation is drawn from a numpy ``Generator`` in the same order as the JAX
 package, so one seed gives the same splits and the same batch order in both.
-Reading a parquet corpus (``load_corpus``) waits for the port of the
-parquet codec.
+``load_corpus`` reads a corpus through the port's codec (npz or parquet
+parts).
 """
 
 from __future__ import annotations
@@ -12,6 +12,8 @@ from __future__ import annotations
 from typing import Iterator, NamedTuple, Optional, Tuple
 
 import numpy as np
+
+from dags_vae_search_tpu_torch.graphs import codec
 
 
 class Corpus(NamedTuple):
@@ -51,6 +53,14 @@ def pack_corpus(labels: np.ndarray, adj: np.ndarray) -> Corpus:
     """A bit-packed corpus from dense 0/1 adjacency."""
     packed = np.packbits((adj > 0).astype(np.uint8), axis=-1)
     return Corpus(labels=labels, adj=np.zeros((0,)), packed_bits=packed)
+
+
+def load_corpus(path: str, pack_above: int = 64) -> Corpus:
+    """Load a corpus directory or file; bit-pack adjacency when n > pack_above."""
+    labels, adj = codec.read_dataset(path)
+    if labels.shape[1] > pack_above:
+        return pack_corpus(labels, adj)
+    return Corpus(labels=labels, adj=adj)
 
 
 def train_test_split(

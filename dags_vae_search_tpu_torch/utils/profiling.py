@@ -1,7 +1,8 @@
 """Step timing, counters and profiler annotations (torch).
 
-Counterpart of ``dags_vae_search_tpu/utils/profiling.py``: ``annotate``
-names a region in a ``torch.profiler`` trace; ``StepTimer`` is a rolling
+Counterpart of ``dags_vae_search_tpu/utils/profiling.py``: ``trace``
+records a ``torch.profiler`` window (host and CUDA events) into a Chrome
+trace file; ``annotate`` names a region in it; ``StepTimer`` is a rolling
 host-clock step timer with an items/s rate; ``Counters`` holds named
 monotonically increasing counts with rates since creation.  The host clock
 measures what the host waited for: wrap work that ends in a device
@@ -16,6 +17,19 @@ from collections import defaultdict
 from typing import Dict, Iterator
 
 import torch
+
+
+@contextlib.contextmanager
+def trace(log_dir: str) -> Iterator[torch.profiler.profile]:
+    """Profile the block over CPU and CUDA activities (those this build of
+    torch supports) and write its Chrome trace, ``*.pt.trace.json``, into
+    ``log_dir`` (TensorBoard's profile plugin and Perfetto read it)."""
+    from torch.profiler import ProfilerActivity, profile, supported_activities, tensorboard_trace_handler
+
+    activities = [a for a in (ProfilerActivity.CPU, ProfilerActivity.CUDA)
+                  if a in supported_activities()]
+    with profile(activities=activities, on_trace_ready=tensorboard_trace_handler(log_dir)) as prof:
+        yield prof
 
 
 @contextlib.contextmanager

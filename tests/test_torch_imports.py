@@ -1,7 +1,7 @@
 """The port and ``chip_smoke.py`` stand alone: no JAX, no flax/optax/orbax,
 nothing of the JAX package, no pandas on the scoring path, and no
-networkx, pandas or pyarrow imported when a module is (the card's machine
-has none of them)."""
+networkx, pandas, pyarrow or matplotlib imported when a module is (the
+card's machine has none of them)."""
 
 import ast
 import subprocess
@@ -49,7 +49,7 @@ def _module_level_roots(path: Path):
 
 @pytest.mark.parametrize("path", SOURCES, ids=[str(p.relative_to(REPO)) for p in SOURCES])
 def test_source_imports_no_optional_host_library_at_module_level(path):
-    bad = sorted(set(_module_level_roots(path)) & {"networkx", "pandas", "pyarrow"})
+    bad = sorted(set(_module_level_roots(path)) & {"networkx", "pandas", "pyarrow", "matplotlib"})
     assert not bad, f"{path.relative_to(REPO)} imports {bad} at module level"
 
 
@@ -65,6 +65,7 @@ def test_port_has_the_slice_modules():
         "ops/reachability.py", "scoring/family_table.py", "scoring/family_batch.py",
         "search/exact.py", "search/hillclimb.py", "search/delta_hillclimb.py",
         "search/islands.py", "surrogate/gp.py", "surrogate/dataset.py",
+        "graphs/codec.py", "utils/viz.py", "experiments/runner.py", "experiments/results.py",
     }
     assert all((PORT / m).is_file() for m in modules)
 
@@ -199,6 +200,56 @@ def test_port_runs_the_search_stage_without_optional_libraries():
     )
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.startswith("ok")
+
+
+BLOCKED_PIPELINE_RUN = """
+import copy, json, os, sys, tempfile
+for name in ("jax", "jaxlib", "flax", "optax", "orbax", "pandas", "pyarrow", "networkx",
+             "matplotlib", "dags_vae_search_tpu"):
+    sys.modules[name] = None  # any import of these now raises ImportError
+import dags_vae_search_tpu_torch.experiments.results as results
+import dags_vae_search_tpu_torch.graphs.codec
+import dags_vae_search_tpu_torch.utils.profiling
+import dags_vae_search_tpu_torch.utils.viz
+from dags_vae_search_tpu_torch.experiments import registry, runner
+cfg = copy.deepcopy(registry.REGISTRY["asia"])
+cfg.corpus.batch_size, cfg.corpus.max_in_degree, cfg.simulate_cases = 1, 3, 300
+m = cfg.model
+m.embed_size, m.num_heads, m.num_layers, m.latent_size, m.fc_hidden = 8, 2, 1, 16, 8
+cfg.train.epochs, cfg.train.batch_size, cfg.train.steps_per_call = 1, 4, 4
+s = cfg.search
+s.max_parents, s.islands, s.island_population, s.island_iters, s.refine_iters = 3, 2, 8, 1, 1
+s.refine_population, s.hill_climb_iters, s.hill_climb_restarts, s.island_subspace = 16, 20, 1, 4
+s.budget_compare_evals, s.gp_iters, s.gp_ascent_seeds, s.gp_ascent_rounds, s.bo_rounds = (
+    32, 10, 8, 1, 1)
+registry.REGISTRY["asia"] = cfg
+tmp = tempfile.mkdtemp()
+args = ["--data-dir", os.path.join(tmp, "runs"), "--device", "cpu"]
+runner.main(["asia", "generate", "split", "train", *args])
+try:
+    runner.main(["asia", "eval", *args])
+    raise SystemExit("eval ran an isomorphism check without networkx")
+except ImportError as exc:
+    assert "networkx" in str(exc), exc
+run = runner.ExperimentRunner(cfg, data_dir=os.path.join(tmp, "runs"), device="cpu")
+run.stage_eval(use_isomorphism=False)
+runner.main(["asia", "predictor", "gp", "search", *args])
+for stage in ("generate", "split", "train", "eval", "predictor", "gp", "search"):
+    with open(os.path.join(tmp, "reports_torch", "asia", f"report_{stage}.json")) as fh:
+        text = fh.read()
+    assert "skipped (" not in text, text
+results.main([os.path.join(tmp, "runs"), os.path.join(tmp, "RESULTS_torch.md")])
+print("ok", json.loads(text)["hill_climb"]["best_bic"])
+"""
+
+
+def test_port_runs_the_pipeline_cli_without_optional_libraries():
+    proc = subprocess.run(
+        [sys.executable, "-c", BLOCKED_PIPELINE_RUN], cwd=REPO, capture_output=True, text=True,
+        timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert proc.stdout.splitlines()[-1].startswith("ok")
 
 
 def test_chip_smoke_refuses_to_run_without_its_package_or_a_card(tmp_path):
