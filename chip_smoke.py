@@ -66,12 +66,38 @@ order; any failure exits non-zero:
    mirror, none skipped, the climb's best equal to its host re-score
    (``score_exact_sparse``) and to phase 9's to 1e-9, every latent best
    finite, the fused entry launched by search and predictor, the page naming
-   the card.  Last, the numpy decode of npz parts at link width (n = 724),
-   timed on the host.
+   the card;
+11. wide rows at barley width — ``make_synthetic_problem("barley",
+   max_card=16)`` scored with the registry's ``max_parents`` 8: q_cap 4,096,
+   r_max 16, S = 65,536 bins per row, past one warp's shared memory, so both
+   entries take their wide kernels.  A dense climb from the empty graph
+   (``score_chunk`` 256, ``WIDE_CLIMB_STEPS`` steps) and a delta climb (its
+   default chunk of 4,096 families), each best held to its float64
+   re-scores; the fused wide kernel held bit-equal to its plain version on
+   a climb chunk, the seg wide kernel on the delta climb's chunks, each
+   timed beside its plain version, its bound (the output's bytes) and
+   ``torch.bincount``; launches per path; peak memory under 20 GiB; and
+   rows of 512 bins shown still taking the narrow kernels;
+12. the native codec at link width — ``native.load()`` must build the
+   library; the two n = 724 npz parts read through it, and decoded by it and
+   by numpy (bit-equal) in 10 pairs of alternating order, graphs/s for both;
+13. data parallel at alarm width (one card, so no multi-card number): (a)
+   a world-size-1 NCCL group, chunked steps of ``Trainer(mesh=...)``
+   bit-identical to ``mesh=None``; (b) two gloo ranks sharing the card,
+   dropout 0 and the same noise, 5 steps against one process whose every
+   step starts from the two-rank run's state: losses to rtol 1e-4 / atol
+   1e-5, each step's summed gradients to 1e-4 norm-wise, and each step's
+   parameters to rtol 1e-4 / atol 1e-5, leaving out (and counting) the
+   elements whose two gradients, at that step or before, differed by more
+   than 1e-3 of the one-process one; (c)
+   ``island_cem_search`` over the two ranks, 8 islands x 512, 2 iterations
+   in mode decode, its best equal to one process's.
 
 The last stdout line is ``{"ok": true, "device": {...}}``; the line before
-it holds the kernels' JSON record, a ``train:`` line holds phases 5-8, a
-``search_stage:`` line phase 9 and a ``pipeline:`` line phase 10.
+it holds the kernels' JSON record (both entries, each with its narrow and
+its wide route), a ``train:`` line holds phases 5-8, a ``search_stage:``
+line phase 9, a ``pipeline:`` line phase 10, and ``wide_rows:``,
+``native_codec:`` and ``data_parallel:`` lines phases 11-13.
 """
 
 from __future__ import annotations
@@ -85,6 +111,7 @@ import os
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -109,13 +136,27 @@ DELTA_CHUNK = 4096
 CLOSURE_BATCHES = (2, 16, 128, 512)
 #: phase 10's runner stages, in order
 PIPELINE_STAGES = ("generate", "split", "train", "eval", "predictor", "gp", "search", "roundtrip")
-#: phase 10's codec timing: link width, graphs (in two npz parts), repeats
+#: phase 12's codec timing: link width, graphs (in two npz parts), repeats
 LINK_N, LINK_GRAPHS, LINK_REPS = 724, 64, 3
+#: phase 12: native and numpy decodes per part, in alternating order
+LINK_PAIRS = 10
 #: the train-step check's model: the parity tests' small width, deterministic
 SMALL_TRAIN = dict(num_real_vertices=5, real_label_cardinality=5, embed_size=16, num_heads=4,
                    num_layers=2, latent_size=16, fc_hidden=16, dropout=0.0, epsilon_scale=0.0,
                    edge_readout=True)
-KERNELS = ("contingency_counts_fused", "contingency_counts")
+#: phase 11: the wide-row route at barley width (16-state variables)
+WIDE_NAME, WIDE_MAX_CARD = "barley", 16
+WIDE_CLIMB_CHUNK = 256
+WIDE_CLIMB_STEPS = 20
+WIDE_PEAK_GIB = 20.0
+#: phase 13: optimizer steps of the two-rank check, islands x population x iterations
+DP_STEPS = 5
+DP_ISLANDS, DP_POPULATION, DP_ITERS = 8, 512, 2
+#: phase 13: a parameter element's update is compared where the two runs'
+#: summed gradients agree within this fraction of the one-process one
+DP_GRAD_RTOL = 1e-3
+KERNELS = ("contingency_counts_fused", "contingency_counts_fused_wide", "contingency_counts",
+           "contingency_counts_wide")
 #: Published H100 SXM peak HBM bytes/s.
 H100_BYTES_PER_S = 3.35e12
 #: INT32 lanes of one H100 SXM per clock: 132 SMs x 64.
@@ -271,6 +312,7 @@ def time_entries(torch, scorer, adj, label: str, clock_hz: float) -> dict:
 
 
 def phase_kernels(torch, cfg, scorer, clock_hz) -> dict:
+    from dags_vae_search_tpu_torch import native
     from dags_vae_search_tpu_torch.graphs import sampler
     from dags_vae_search_tpu_torch.ops import _build
 
@@ -283,9 +325,15 @@ def phase_kernels(torch, cfg, scorer, clock_hz) -> dict:
     print(f"kernel shape: R={pop * n} (B={pop} x n={n}) U={scorer.num_unique_rows} "
           f"S={scorer.q_cap * scorer.r_max}")
 
+    # the two sources build at once: nvcc for the kernels, g++ for the codec
     t0 = time.perf_counter()
+    codec_build = threading.Thread(target=native.load)
+    codec_build.start()
     _build.load("contingency_counts")
     print(f"contingency_counts build+load {time.perf_counter() - t0:.2f} s")
+    codec_build.join()
+    print(f"native codec build+load {time.perf_counter() - t0:.2f} s, "
+          f"{'loaded' if native.load() is not None else 'FAILED: ' + native.build_log}")
     for line in _build.build_logs.get("contingency_counts", "").splitlines():
         if "entry function" in line or "registers" in line or "smem" in line or "spill" in line:
             print("  ptxas:", line.strip())
@@ -372,20 +420,23 @@ def phase_train_card_vs_cpu(torch) -> None:
           f"max |param diff| {worst:.3g} (rtol 1e-4, atol 1e-5)")
 
 
-def reset_launches() -> None:
+def _counters() -> dict:
+    """Each route's wrapper, by its record name."""
     from dags_vae_search_tpu_torch.ops import bic_kernel
 
-    bic_kernel.contingency_counts_fused.launches = 0
-    bic_kernel.contingency_counts_kernel.launches = 0
+    return {"contingency_counts_fused": bic_kernel.contingency_counts_fused,
+            "contingency_counts_fused_wide": bic_kernel.contingency_counts_fused_wide,
+            "contingency_counts": bic_kernel.contingency_counts_kernel,
+            "contingency_counts_wide": bic_kernel.contingency_counts_wide}
+
+
+def reset_launches() -> None:
+    for fn in _counters().values():
+        fn.launches = 0
 
 
 def read_launches() -> dict:
-    from dags_vae_search_tpu_torch.ops import bic_kernel
-
-    return {
-        "contingency_counts_fused": bic_kernel.contingency_counts_fused.launches,
-        "contingency_counts": bic_kernel.contingency_counts_kernel.launches,
-    }
+    return {name: fn.launches for name, fn in _counters().items()}
 
 
 def check_exact(scorer, best_score: float, cols: np.ndarray) -> float:
@@ -804,7 +855,9 @@ def hold_fused(torch, scorer, adj, label: str, clock_hz: float) -> dict:
                                reps=2, warmup=1),
            **fused_bound(args[0], args[1], args[2], adj, scorer.q_cap * scorer.r_max, clock_hz)}
     del got, want
-    describe_rows(torch, (adj > 0).float(), label)
+    if bic_kernel.route(bic_kernel.fused_warp_bytes(scorer.q_cap * scorer.r_max,
+                                                    adj.shape[-1])) == "narrow":
+        describe_rows(torch, (adj > 0).float(), label)
     print(f"{label}: fused kernel vs plain max |diff| {out['err']} (tolerance 0); "
           + json.dumps(out))
     return out
@@ -1020,6 +1073,289 @@ def phase_search_stage(torch, cfg, scorer, dataset, model, test_c, clock_hz) -> 
             "family_seg": time_family_seg(torch, fam, delta.best_adj, clock_hz)}
 
 
+def phase_wide_rows(torch, alarm_scorer, clock_hz) -> dict:
+    """Phase 11: rows of S = 65,536 bins at barley width through both
+    entries' wide kernels; checks in the module docstring."""
+    from dags_vae_search_tpu_torch.experiments.registry import REGISTRY
+    from dags_vae_search_tpu_torch.ops import bic_kernel
+    from dags_vae_search_tpu_torch.scoring.bic import BicScorer
+    from dags_vae_search_tpu_torch.scoring.catalog import make_synthetic_problem
+    from dags_vae_search_tpu_torch.scoring.family_batch import FamilyBatchScorer
+    from dags_vae_search_tpu_torch.search import hillclimb
+    from dags_vae_search_tpu_torch.search.delta_hillclimb import delta_hill_climb
+
+    cfg = REGISTRY[WIDE_NAME]
+    s, n = cfg.search, cfg.num_vertices
+    _, dataset = make_synthetic_problem(WIDE_NAME, num_cases=cfg.simulate_cases,
+                                        max_card=WIDE_MAX_CARD, seed=cfg.seed)
+    scorer = BicScorer(dataset, max_parents=s.max_parents, device="cuda")
+    fam = FamilyBatchScorer(dataset, max_parents=s.max_parents, q_cap=scorer.q_cap, device="cuda")
+    S = scorer.q_cap * scorer.r_max
+    print(f"wide rows ({WIDE_NAME}, n={n}, {dataset.num_cases} cases, cards up to "
+          f"{WIDE_MAX_CARD}): r_max={scorer.r_max}, U={scorer.num_unique_rows}, "
+          f"q_cap={scorer.q_cap}, S={S}")
+    check(S == 65_536 and bic_kernel.route(bic_kernel.fused_warp_bytes(S, n))
+          == bic_kernel.route(bic_kernel.seg_warp_bytes(S)) == "wide",
+          f"S={S} does not take the wide route")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    steps: dict = {}
+
+    def step(name, fn):
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        steps[name] = {"seconds": seconds, "launches": read_launches(),
+                       "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+        return res
+
+    dense = step("dense_climb", lambda: hillclimb.hill_climb(
+        scorer, n, max_iters=WIDE_CLIMB_STEPS, score_chunk=WIDE_CLIMB_CHUNK))
+    delta = step("delta_climb", lambda: delta_hill_climb(
+        fam, n, max_iters=max(s.hill_climb_iters, 4 * n), chunk=DELTA_CHUNK,
+        accept_batch=s.hill_climb_accept_batch))
+    for name, res, entry in (("dense_climb", dense, "contingency_counts_fused_wide"),
+                             ("delta_climb", delta, "contingency_counts_wide")):
+        info = steps[name]
+        launches = info["launches"]
+        check(launches[entry] > 0 and sum(launches.values()) == launches[entry],
+              f"wide {name}: launches {launches}")
+        check(all(b >= a for a, b in zip(res.history, res.history[1:])), f"{name} history decreased")
+        info.update(best_bic=res.best_score, best_bic_exact=check_exact(scorer, res.best_score,
+                                                                         res.best_adj),
+                    iterations=res.iterations, converged=bool(res.converged),
+                    evals=res.num_evals, evals_per_s=res.num_evals / info["seconds"],
+                    edges=int(np.asarray(res.best_adj).sum()))
+        print(f"wide {name}: " + json.dumps(info))
+
+    # the kernels at the inputs these paths send them
+    moves = hillclimb._move_candidates(torch.as_tensor(dense.best_adj, device="cuda"))
+    fused = hold_fused(torch, scorer, moves[:WIDE_CLIMB_CHUNK], "wide dense climb chunk", clock_hz)
+    del moves
+    seg = time_family_seg(torch, fam, delta.best_adj, clock_hz)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check(peak < WIDE_PEAK_GIB, f"phase 11 peak {peak:.2f} GiB")
+
+    # rows of 512 bins still take the narrow kernels
+    reset_launches()
+    alarm_n = alarm_scorer.dataset.num_variables
+    alarm_scorer.score(torch.zeros((4, alarm_n, alarm_n), device="cuda"))
+    torch.cuda.synchronize()
+    narrow = read_launches()
+    check(narrow["contingency_counts_fused"] == 1 and narrow["contingency_counts_fused_wide"] == 0,
+          f"rows of {alarm_scorer.q_cap * alarm_scorer.r_max} bins: launches {narrow}")
+    out = {"dataset": {"name": WIDE_NAME, "n": n, "cases": dataset.num_cases,
+                       "r_max": scorer.r_max, "U": scorer.num_unique_rows, "q_cap": scorer.q_cap,
+                       "S": S},
+           "cuts": {"dense_climb_steps": [s.hill_climb_iters, WIDE_CLIMB_STEPS],
+                    "score_chunk": [4096, WIDE_CLIMB_CHUNK]},
+           "steps": steps, "fused_climb_chunk": fused, "family_seg": seg, "peak_mem_gib": peak,
+           "narrow_check_launches": narrow}
+    return out
+
+
+def _dp_fit(model_kwargs: dict, train_cfg, corpus, mesh=None, record=False, forced=None) -> dict:
+    """Phase 13: ``Trainer.fit`` from seed ``SEED`` on ``corpus``, one epoch,
+    on one process (``mesh`` None, the card) or as one rank of ``mesh``.
+
+    ``record`` keeps, for every step, the parameters it starts from and the
+    summed gradients it computes (before the clip), on the host.
+    ``forced``, another run's record, sets the parameters to that run's
+    before each step (after recording them), so each step of this run starts
+    from the state the other run's step started from."""
+    import torch
+
+    from dags_vae_search_tpu_torch.models.pace_vae import make_model
+    from dags_vae_search_tpu_torch.training.train import Trainer
+
+    dev = torch.device("cuda") if mesh is None else mesh.device
+    trainer = Trainer(make_model(SEED, dev, **model_kwargs), train_cfg, mesh=mesh)
+    state = trainer.init_state(SEED)
+    steps: dict = {"before": [], "grads": []}
+    if record:
+        compute = trainer.compute_gradients
+
+        def recording_compute(state, labels, adj, generator=None):
+            params = dict(state.model.named_parameters())
+            steps["before"].append({k: p.detach().to("cpu", copy=True) for k, p in params.items()})
+            if forced is not None:
+                with torch.no_grad():
+                    for k, p in params.items():
+                        p.copy_(forced["before"][len(steps["grads"])][k])
+            losses = compute(state, labels, adj, generator)
+            steps["grads"].append({k: p.grad.detach().to("cpu", copy=True)
+                                   for k, p in params.items()})
+            return losses
+
+        trainer.compute_gradients = recording_compute
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    state, hist = trainer.fit(state, corpus, log=lambda line: None)
+    torch.cuda.synchronize(dev)
+    seconds = time.perf_counter() - t0
+    return {"losses": [hist[-1][k] for k in ("loss_per_graph", "recon_per_graph", "kld_per_graph")],
+            **steps, "params": {k: v.detach().cpu() for k, v in state.model.state_dict().items()},
+            "steps": state.step, "step_ms": 1e3 * seconds / state.step}
+
+
+def _dp_islands(model_kwargs: dict, codes, cards, max_parents: int, mesh=None) -> dict:
+    """Phase 13 (c): island CEM in mode decode, on one process or a rank."""
+    import torch
+
+    from dags_vae_search_tpu_torch.models.pace_vae import make_model
+    from dags_vae_search_tpu_torch.scoring.bic import BicScorer
+    from dags_vae_search_tpu_torch.scoring.datasets import DiscreteDataset
+    from dags_vae_search_tpu_torch.search.islands import island_cem_search
+
+    dev = torch.device("cuda") if mesh is None else mesh.device
+    scorer = BicScorer(DiscreteDataset(codes, cards, [f"x{i}" for i in range(codes.shape[1])]),
+                       max_parents=max_parents, device=dev)
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    res = island_cem_search(make_model(SEED, dev, **model_kwargs), scorer, seed=SEED,
+                            num_islands=DP_ISLANDS, population=DP_POPULATION, iters=DP_ITERS,
+                            temperature_range=(1e-3, 1e-3), device=dev, mesh=mesh)
+    torch.cuda.synchronize(dev)
+    return {**res._asdict(), "seconds": time.perf_counter() - t0}
+
+
+def _dp_rank(mesh, model_kwargs, train_cfg, corpus, codes, cards, max_parents) -> dict:
+    """Phase 13 (b) and (c) on one rank of the two-rank group."""
+    return {"rank": mesh.rank, "world": mesh.world_size, "device": str(mesh.device),
+            "fit": _dp_fit(model_kwargs, train_cfg, corpus, mesh, record=mesh.rank == 0),
+            "islands": _dp_islands(model_kwargs, codes, cards, max_parents, mesh)}
+
+
+def phase_data_parallel(torch, cfg, train_c, dataset) -> dict:
+    """Phase 13: ``Trainer(mesh=...)`` and ``island_cem_search(mesh=...)`` at
+    alarm width on the one card; checks in the module docstring."""
+    import torch.distributed as dist
+
+    from dags_vae_search_tpu_torch.parallel import mesh as mesh_lib
+
+    b = cfg.train.batch_size
+    train_cfg = dataclasses.replace(cfg.train, epochs=1, log_every=0)
+    out: dict = {}
+
+    # (a) a world of one on NCCL, the registry's dropout and noise on
+    cut = train_c.take(np.arange(4 * b))
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{os.path.join(tmp, 'store')}",
+                                rank=0, world_size=1)
+        try:
+            mesh = mesh_lib.make_mesh(device="cuda:0")
+            alone = _dp_fit(cfg.model_kwargs(), train_cfg, cut)
+            one = _dp_fit(cfg.model_kwargs(), train_cfg, cut, mesh)
+        finally:
+            dist.destroy_process_group()
+    check(one["steps"] == alone["steps"] == 4, f"steps {one['steps']}, {alone['steps']}")
+    check(one["losses"] == alone["losses"] and all(
+        torch.equal(one["params"][k], alone["params"][k]) for k in alone["params"]),
+        "a world-size-1 NCCL mesh is not bit-identical to mesh=None")
+    out["world_of_one"] = {"steps": 4, "bit_identical": True, "losses": one["losses"],
+                           "step_ms": {"mesh": one["step_ms"], "none": alone["step_ms"]},
+                           "seconds": time.perf_counter() - t0}
+    print("data parallel (a): NCCL world of one, 4 chunked steps bit-identical to mesh=None; "
+          + json.dumps(out["world_of_one"]))
+    del alone, one
+
+    # (b) two gloo ranks sharing the card, dropout 0, the same noise; (c) islands
+    kwargs = dict(cfg.model_kwargs(), dropout=0.0)
+    corpus = train_c.take(np.arange(DP_STEPS * b))
+    codes, cards = np.asarray(dataset.codes), np.asarray(dataset.cards)
+    t0 = time.perf_counter()
+    ranks = mesh_lib.spawn(_dp_rank, 2, kwargs, train_cfg, corpus, codes, cards,
+                           cfg.search.max_parents, device="cuda:0", backend="gloo", timeout=600)
+    spawn_s = time.perf_counter() - t0
+    # one process, each step started from the two-rank run's state (rank 0's)
+    ranked = ranks[0]["fit"]
+    single = _dp_fit(kwargs, train_cfg, corpus, record=True, forced=ranked)
+    check(single["steps"] == DP_STEPS == len(ranked["grads"]), f"{single['steps']} steps")
+    check(all(torch.equal(ranked["params"][k], ranks[1]["fit"]["params"][k])
+              for k in ranked["params"]), "the two ranks hold different parameters")
+    # Each step's summed gradients, over all parameters, are held to a
+    # norm-wise relative difference of 1e-4.  Element by element they differ
+    # by rounding: each sums up to 128 x 39 x 39 terms of both signs, split
+    # over two ranks and multiplied by other cuBLAS kernels, so where the
+    # terms cancel, the sum keeps little of its value.  Each step's result,
+    # from the same start, is held to rtol 1e-4 / atol 1e-5 at the elements
+    # whose two gradients agreed within DP_GRAD_RTOL of the one-process one
+    # at every step so far: Adam's update moves by about 1.4 dg/|g| per step
+    # at most, so those stay within 5 x 1.4 x 1e-3 of a step of lr 2e-4,
+    # below 1.4e-6.  The others are left out and counted.
+    unsettled = {name: torch.zeros_like(g, dtype=torch.bool)
+                 for name, g in single["grads"][0].items()}
+    total = sum(g.numel() for g in unsettled.values())
+    worst = {"loss": float(np.abs(np.subtract(ranked["losses"], single["losses"])).max()),
+             "param_kept": 0.0, "param_left_out": 0.0, "grad_rel_norm": [], "left_out": [],
+             "outside_tolerance": [], "outside_tolerance_kept": []}
+    check(np.allclose(ranked["losses"], single["losses"], rtol=1e-4, atol=1e-5),
+          f"losses {ranked['losses']} vs one process {single['losses']}")
+    for t in range(DP_STEPS):
+        after = {run: (r["before"][t + 1] if t + 1 < DP_STEPS else r["params"])
+                 for run, r in (("ranks", ranked), ("single", single))}
+        sq_diff = sq_want = 0.0
+        outside = outside_kept = 0
+        for name, want in single["grads"][t].items():
+            grad_diff = (ranked["grads"][t][name] - want).abs()
+            sq_diff += float(grad_diff.double().square().sum())
+            sq_want += float(want.double().square().sum())
+            unsettled[name] |= grad_diff > DP_GRAD_RTOL * want.abs()
+            kept = ~unsettled[name]
+            value = after["ranks"][name]
+            diff = (after["single"][name] - value).abs()
+            out_tol = diff > 1e-5 + 1e-4 * value.abs()
+            outside += int(out_tol.sum())
+            outside_kept += int((out_tol & kept).sum())
+            for key, where in (("param_kept", kept), ("param_left_out", ~kept)):
+                if where.any():
+                    worst[key] = max(worst[key], float(diff[where].max()))
+        worst["grad_rel_norm"].append((sq_diff / sq_want) ** 0.5)
+        worst["left_out"].append(sum(int(m.sum()) for m in unsettled.values()))
+        worst["outside_tolerance"].append(outside)
+        worst["outside_tolerance_kept"].append(outside_kept)
+    print(f"data parallel (b), per step of {DP_STEPS} over {total} parameter elements: "
+          + json.dumps(worst))
+    check(max(worst["grad_rel_norm"]) <= 1e-4,
+          f"summed gradients differ from one process by {worst['grad_rel_norm']} (norm-wise)")
+    check(sum(worst["outside_tolerance_kept"]) == 0,
+          f"parameter elements with settled gradients differ from one process past rtol 1e-4 / "
+          f"atol 1e-5 at steps 1-{DP_STEPS}: {worst['outside_tolerance_kept']} (largest "
+          f"{worst['param_kept']})")
+    out["two_ranks_sharing_one_card"] = {
+        "steps": DP_STEPS, "batch": b, "losses": ranks[0]["fit"]["losses"],
+        "one_process_losses": single["losses"], "max_diff": worst, "parameters": total,
+        "step_ms_two_ranks_sharing_one_card_with_records": [r["fit"]["step_ms"] for r in ranks],
+        "step_ms_one_process_with_records": single["step_ms"], "spawn_s": spawn_s}
+    print(f"data parallel (b): 2 gloo ranks sharing one card vs one process, {DP_STEPS} steps, "
+          "each from the same start; "
+          + json.dumps(out["two_ranks_sharing_one_card"]))
+
+    alone = _dp_islands(kwargs, codes, cards, cfg.search.max_parents)
+    check(np.isfinite(alone["best_score"]), f"island best {alone['best_score']}")
+    for r in ranks:
+        got = r["islands"]
+        check(got["best_score"] == alone["best_score"] and got["history"] == alone["history"]
+              and np.array_equal(got["best_adj"], alone["best_adj"])
+              and np.array_equal(got["best_labels"], alone["best_labels"]),
+              f"rank {r['rank']}: islands best {got['best_score']} vs one process "
+              f"{alone['best_score']}")
+        check(got["num_evals"] == DP_ISLANDS * DP_POPULATION * DP_ITERS + DP_ISLANDS * 32,
+              f"island evals {got['num_evals']}")
+    out["islands_two_ranks"] = {
+        "islands": DP_ISLANDS, "population": DP_POPULATION, "iters": DP_ITERS,
+        "best_bic": alone["best_score"], "history": alone["history"],
+        "evals": alone["num_evals"], "seconds_two_ranks_sharing_one_card":
+        [r["islands"]["seconds"] for r in ranks], "seconds_one_process": alone["seconds"]}
+    print("data parallel (c): island CEM over 2 ranks sharing one card equals one process; "
+          + json.dumps(out["islands_two_ranks"]))
+    return out
+
+
 def _skipped(tree, path="") -> list:
     """Paths of the ``"skipped (...)"`` strings in a report tree."""
     if isinstance(tree, dict):
@@ -1029,17 +1365,25 @@ def _skipped(tree, path="") -> list:
     return [path] if isinstance(tree, str) and tree.startswith("skipped (") else []
 
 
-def time_link_decode() -> dict:
-    """The numpy decode of npz parts at link width: ``LINK_GRAPHS`` random
-    DAGs with n = 724 (about 2n edges each) written in two parts, then read
-    back (load + decode) and decoded alone from loaded columns, each
-    ``LINK_REPS`` times on the host clock; the read must be bit-equal."""
+def phase_native_codec() -> dict:
+    """Phase 12: the native codec at link width.  ``LINK_GRAPHS`` random DAGs
+    with n = 724 (about 2n edges each) written in two npz parts, read back
+    through the codec ``LINK_REPS`` times, then each part's loaded columns
+    decoded by the library and by numpy in ``LINK_PAIRS`` pairs on the host
+    clock, the order alternating from pair to pair: all bit-equal.  Also the
+    first and the second fill of a fresh array of one part's output size, the
+    share of a decode that is the first touch of its output."""
+    from dags_vae_search_tpu_torch import native
     from dags_vae_search_tpu_torch.graphs import codec
 
+    lib = native.load()
+    check(lib is not None, f"the native codec did not build: {native.build_log}")
     rng = np.random.default_rng(SEED)
     n = LINK_N
     labels = np.stack([rng.permutation(n) for _ in range(LINK_GRAPHS)]).astype(np.int32)
     adj = np.triu(rng.random((LINK_GRAPHS, n, n), dtype=np.float32) < 4.0 / n, 1).astype(np.float32)
+    times = {"native": [], "numpy": []}  # per part, per pair
+    touch_ms = []
     with tempfile.TemporaryDirectory() as tmp:
         codec.write_dataset(tmp, labels, adj, rows_per_part=LINK_GRAPHS // 2)
         parts = codec.dataset_parts(tmp)
@@ -1050,20 +1394,47 @@ def time_link_decode() -> dict:
             read_s.append(time.perf_counter() - t0)
         check(np.array_equal(got[0], labels) and np.array_equal(got[1], adj),
               "link-width npz corpus read back differs")
-        with np.load(parts[0]) as blob:
-            cols = [blob[f"l{i}"] for i in range(n)]
-            bits = {i: blob[f"e{i}"] for i in range(1, n)}
-        rows = cols[0].shape[0]
-        decode_s = []
-        for _ in range(LINK_REPS):
-            t0 = time.perf_counter()
-            codec.decode_columns(cols, bits, rows)
-            decode_s.append(time.perf_counter() - t0)
-    out = {"n": n, "graphs": LINK_GRAPHS, "parts": len(parts), "edges_per_graph": float(adj.sum()) / LINK_GRAPHS,
-           "read_s": read_s, "decode_s_per_part": decode_s, "decode_rows_per_part": rows,
-           "decode_graphs_per_s": rows / min(decode_s),
-           "dense_mb_per_s": rows * n * n * 4 / min(decode_s) / 1e6}
-    print("numpy decode at link width (host): " + json.dumps(out))
+        start = 0
+        for part in parts:
+            with np.load(part) as blob:
+                bits = {i: blob[f"e{i}"] for i in range(1, n)}
+            rows = bits[1].shape[0]
+            decode = {"native": lambda: native.decode_edges(bits, n, rows, lib),
+                      "numpy": lambda: codec.decode_edges_numpy(bits, n, rows)}
+            decoded, part_times = {}, {"native": [], "numpy": []}
+            for pair in range(LINK_PAIRS):
+                for name in (("native", "numpy") if pair % 2 == 0 else ("numpy", "native")):
+                    t0 = time.perf_counter()
+                    decoded[name] = decode[name]()
+                    part_times[name].append(time.perf_counter() - t0)
+            for name in times:
+                times[name].append(part_times[name])
+            check(np.array_equal(decoded["native"], decoded["numpy"]),
+                  f"{part}: native decode differs from numpy's")
+            check(np.array_equal(decoded["native"], adj[start:start + rows]),
+                  f"{part}: native decode differs from the written graphs")
+            start += rows
+            del decoded
+            fresh = np.empty((rows, n, n), dtype=np.float32)
+            fills = []
+            for _ in range(2):
+                t0 = time.perf_counter()
+                fresh.fill(0.0)
+                fills.append(1e3 * (time.perf_counter() - t0))
+            touch_ms.append(fills)
+            del fresh
+    speedups = [b / a for nat, num in zip(times["native"], times["numpy"]) for a, b in zip(nat, num)]
+    median_s = {name: [float(np.median(t)) for t in times[name]] for name in times}
+    out = {"n": n, "graphs": LINK_GRAPHS, "parts": len(parts), "pairs_per_part": LINK_PAIRS,
+           "edges_per_graph": float(adj.sum()) / LINK_GRAPHS, "read_s": read_s,
+           "decode_s_per_part_per_pair": times,
+           "native_graphs_per_s": LINK_GRAPHS / sum(median_s["native"]),
+           "numpy_graphs_per_s": LINK_GRAPHS / sum(median_s["numpy"]),
+           "median_pair_speedup": float(np.median(speedups)),
+           "pairs_native_ahead": sum(x > 1.0 for x in speedups), "pairs": len(speedups),
+           "fresh_output_fill_ms_first_second": touch_ms}
+    print("native codec at link width (host): native and numpy decodes bit-equal; "
+          + json.dumps(out))
     return out
 
 
@@ -1190,7 +1561,6 @@ def phase_pipeline(torch, cfg, name: str, corpus, train_c, test_c, hc_best: floa
         "roundtrip": {k: reports["roundtrip"][k] for k in
                       ("true_bic", "gp_predicted_bic", "relative_error", "decode_valid")},
         "results_header": page.splitlines()[0],
-        "link_decode": time_link_decode(),
     }
     summary = {s: {"wall_s": round(v["seconds"], 3), "peak_gib": round(v["peak_mem_gib"], 3),
                    "fused": v["launches"]["contingency_counts_fused"],
@@ -1200,12 +1570,13 @@ def phase_pipeline(torch, cfg, name: str, corpus, train_c, test_c, hc_best: floa
     return record
 
 
-def kernel_records(er: dict, decoded: dict, stage: dict, launches_by_path: dict) -> list:
-    """The kernels' records, each at its main path's inputs: the fused entry
-    on the decoded population (the latent search's), the seg entry on the
-    delta climb's first frontier; the other inputs' times beside them (the
-    fused entry's dense-climb chunk and island population, the seg entry's
-    refreshes).  ``launches`` sums the main paths' runs, each read on its
+def kernel_records(er: dict, decoded: dict, stage: dict, wide: dict,
+                   launches_by_path: dict) -> list:
+    """The kernels' records, each route at its main path's inputs: the fused
+    entry on the decoded population (the latent search's), the seg entry on
+    the delta climb's first frontier, their wide routes on phase 11's dense
+    climb chunk and delta climb's first frontier; the other inputs' times
+    beside them.  ``launches`` sums the main paths' runs, each read on its
     own."""
     family, fused_stage = stage["family_seg"], stage["fused_stage"]
     stage_err = {"fused": [f["err"] for f in fused_stage.values()],
@@ -1228,7 +1599,34 @@ def kernel_records(er: dict, decoded: dict, stage: dict, launches_by_path: dict)
             **extra,
         }
 
+    def wide_record(name, main, library_ms, extra):
+        return {"name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES,
+                "launches": sum(path[name] for path in launches_by_path.values()),
+                "launches_by_path": {p: path[name] for p, path in launches_by_path.items()},
+                **main, "library_ms": library_ms, **extra}
+
     first = family["first"]
+    chunk, wide_first = wide["fused_climb_chunk"], wide["family_seg"]["first"]
+    wide_records = [
+        wide_record("contingency_counts_fused_wide", {
+            "max_abs_err": chunk["err"], "ms": chunk["ms"], "plain_ms": chunk["plain_ms"],
+            "bound_ms": chunk["bound_ms"], "bound_by": chunk["bound_by"],
+            "inputs": f"dense climb chunk at barley width (R={chunk['rows']}, S=65536)",
+            "bytes": chunk["bytes"], "int_ops": chunk["int_ops"],
+        }, None, {}),
+        wide_record("contingency_counts_wide", {
+            "max_abs_err": max(f["err"] for f in wide["family_seg"].values()),
+            "ms": wide_first["ms"], "plain_ms": wide_first["plain_ms"],
+            "bound_ms": wide_first["bound_ms"], "bound_by": wide_first["bound_by"],
+            "inputs": f"delta climb's first frontier at barley width (F={wide_first['F']}, "
+                      f"U={wide_first['U']}, S={wide_first['S']})",
+            "bytes": wide_first["bytes"], "int_ops": wide_first["int_ops"],
+        }, wide_first["bincount_ms"], {
+            "family_refresh": wide["family_seg"]["refresh"],
+            "family_final_refresh": wide["family_seg"]["final"],
+            "family_full_chunk": wide["family_seg"]["full"],
+        }),
+    ]
     return [
         record("contingency_counts_fused", "fused", "fused_plain_ms", {
             "ms": decoded["fused_ms"], "plain_ms": decoded["fused_plain_ms"],
@@ -1255,7 +1653,7 @@ def kernel_records(er: dict, decoded: dict, stage: dict, launches_by_path: dict)
             "bound_ms_decoded": decoded["seg_bound_ms"], "library_ms_decoded": decoded["bincount_ms"],
             "library_ms_er": er["bincount_ms"],
         }),
-    ]
+    ] + wide_records
 
 
 def main() -> int:
@@ -1306,7 +1704,6 @@ def main() -> int:
                               stage["steps"]["hill_climb"]["best_bic_exact"])
     pipeline["seconds"] = time.perf_counter() - t_pipe
     print("pipeline:", json.dumps(pipeline))
-    print(f"total {time.perf_counter() - t_start:.1f} s")
     launches_by_path = {
         "search": search["kernel_launches"],
         "train_chunked": train["chunked"]["launches"],
@@ -1315,7 +1712,28 @@ def main() -> int:
         **{f"stage_{name}": info["launches"] for name, info in stage["steps"].items()},
         **{f"pipeline_{name}": info["launches"] for name, info in pipeline["stages"].items()},
     }
-    print(json.dumps({"kernels": kernel_records(er, decoded, stage, launches_by_path)}))
+    # rows of 512 bins: the narrow kernels ran, the wide ones never did
+    narrow_total = {k: sum(p[k] for p in launches_by_path.values()) for k in KERNELS}
+    check(narrow_total["contingency_counts_fused"] > 0 and narrow_total["contingency_counts"] > 0
+          and narrow_total["contingency_counts_fused_wide"] == 0
+          and narrow_total["contingency_counts_wide"] == 0,
+          f"phases 1-10 launches {narrow_total}")
+
+    t_wide = time.perf_counter()
+    wide = phase_wide_rows(torch, scorer, clock_hz)
+    wide["seconds"] = time.perf_counter() - t_wide
+    print(f"wide_rows ({nvidia_smi('name,power.limit')}):", json.dumps(wide))
+    launches_by_path.update({f"wide_{k}": v["launches"] for k, v in wide["steps"].items()})
+    t_codec = time.perf_counter()
+    codec = phase_native_codec()
+    codec["seconds"] = time.perf_counter() - t_codec
+    print("native_codec:", json.dumps(codec))
+    t_dp = time.perf_counter()
+    parallel = phase_data_parallel(torch, cfg, train_c, dataset)
+    parallel["seconds"] = time.perf_counter() - t_dp
+    print("data_parallel (one card, no multi-card number):", json.dumps(parallel))
+    print(f"total {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"kernels": kernel_records(er, decoded, stage, wide, launches_by_path)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

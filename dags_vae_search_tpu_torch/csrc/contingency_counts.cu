@@ -50,6 +50,15 @@
 // - Each lane handles 4 consecutive rows u per step: one 32-bit load brings
 //   their uint8 codes of one parent column (one 16-byte load for int32).
 // - All S bins are written, zeros included, with float4 stores when S % 4 == 0.
+//
+// Wide rows.  A row whose S bins do not fit one warp's share of a block
+// (S > 58,112, e.g. q_cap 4,096 x 16 states) takes the wide kernels, one per
+// entry, with the same contract.  They tile S over blocks: a block owns one
+// (row, tile) pair, all of its warps scan the row's U cells and add those
+// that fall in the tile to one shared histogram (shared integer atomics, as
+// above), then the block stores the tile.  The fused wide kernel recomputes
+// the row's configurations for every tile; that integer work is small beside
+// the output it writes, R*S*4 bytes, which bounds this route.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -60,6 +69,10 @@ constexpr int kWarp = 32;
 constexpr int kMaxWarps = 8;
 // Most dynamic shared memory one block can take on Hopper (227 KB).
 constexpr int kMaxSharedBytes = 232448;
+// The wide kernels: threads per block and the most bins of one tile (64 KB,
+// so three blocks share an SM).  ops/bic_kernel.py mirrors kWideTileBins.
+constexpr int kWideThreads = 512;
+constexpr int kWideTileBins = 16384;
 
 __host__ __device__ __forceinline__ int round_up4(int x) { return (x + 3) & ~3; }
 
@@ -278,6 +291,123 @@ contingency_counts_fused_kernel(const float* __restrict__ strides_t,
   }
 }
 
+// ---- the wide-row route ---------------------------------------------------
+
+// Add w to the tile bin of `cell` when it lies in [t0, t0 + len); unsigned
+// arithmetic sends every other cell, negative ones included, out of range.
+__device__ __forceinline__ void tile_add(uint32_t* hist, int cell, int t0, int len, uint32_t w) {
+  const unsigned local = static_cast<unsigned>(cell) - static_cast<unsigned>(t0);
+  if (local < static_cast<unsigned>(len)) atomicAdd(&hist[local], w);
+}
+
+// Zero `words` (a multiple of 4) 32-bit words at the 16-byte aligned `p`.
+__device__ __forceinline__ void block_zero(uint32_t* p, int words) {
+  uint4* v = reinterpret_cast<uint4*>(p);
+  for (int k = threadIdx.x; k < words / 4; k += blockDim.x) v[k] = make_uint4(0u, 0u, 0u, 0u);
+}
+
+// Store the tile's `len` bins at out_tile; float4 stores when `vec` (S and
+// the tile's start are multiples of 4, so out_tile is 16-byte aligned).
+__device__ __forceinline__ void block_store_bins(const uint32_t* hist, float* out_tile, int len,
+                                                 bool vec) {
+  if (vec) {
+    const uint4* h = reinterpret_cast<const uint4*>(hist);
+    float4* o = reinterpret_cast<float4*>(out_tile);
+    for (int k = threadIdx.x; k < len / 4; k += blockDim.x) {
+      const uint4 c = h[k];
+      o[k] = make_float4(static_cast<float>(c.x), static_cast<float>(c.y),
+                         static_cast<float>(c.z), static_cast<float>(c.w));
+    }
+  } else {
+    for (int s = threadIdx.x; s < len; s += blockDim.x) out_tile[s] = static_cast<float>(hist[s]);
+  }
+}
+
+// Block b counts row b / tiles into tile b % tiles (bins [t0, t0 + len)).
+__global__ void __launch_bounds__(kWideThreads)
+contingency_counts_wide_kernel(const uint32_t* __restrict__ w, const int32_t* __restrict__ seg,
+                               float* __restrict__ out, int U, int S, int tile, int tiles) {
+  extern __shared__ __align__(16) uint32_t smem[];
+  const int64_t row = static_cast<int64_t>(blockIdx.x) / tiles;
+  const int t0 = static_cast<int>(blockIdx.x % tiles) * tile;
+  const int len = min(tile, S - t0);
+  block_zero(smem, round_up4(len));
+  __syncthreads();
+  const int32_t* seg_row = seg + row * static_cast<int64_t>(U);
+  for (int u = threadIdx.x; u < U; u += blockDim.x) {
+    tile_add(smem, __ldg(seg_row + u), t0, len, __ldg(w + u));
+  }
+  __syncthreads();
+  block_store_bins(smem, out + row * static_cast<int64_t>(S) + t0, len, (S & 3) == 0);
+}
+
+// strides_t, codes_cm: as contingency_counts_fused_kernel.  Shared memory:
+// round_up4(tile) bins, then the row's parent list (n int2).
+template <typename Code>
+__global__ void __launch_bounds__(kWideThreads)
+contingency_counts_fused_wide_kernel(const float* __restrict__ strides_t,
+                                     const Code* __restrict__ codes_cm,
+                                     const uint32_t* __restrict__ w, float* __restrict__ out,
+                                     int n, int U, int ldc, int q_cap, int r_max, int tile,
+                                     int tiles) {
+  extern __shared__ __align__(16) uint32_t smem[];
+  __shared__ int num_parents;
+  uint32_t* hist = smem;
+  int2* parents = reinterpret_cast<int2*>(smem + round_up4(tile));
+  const int64_t row = static_cast<int64_t>(blockIdx.x) / tiles;
+  const int t0 = static_cast<int>(blockIdx.x % tiles) * tile;
+  const int S = q_cap * r_max;
+  const int len = min(tile, S - t0);
+
+  // warp 0 compacts the row's parents (offset, stride saturated at q_cap)
+  if (threadIdx.x < kWarp) {
+    const int lane = threadIdx.x;
+    const float* srow = strides_t + row * n;
+    int count = 0;
+    for (int base = 0; base < n; base += kWarp) {
+      const int m = base + lane;
+      const float s = m < n ? srow[m] : 0.0f;
+      const unsigned mask = __ballot_sync(0xffffffffu, s > 0.0f);
+      if (s > 0.0f) {
+        const int sat = s >= static_cast<float>(q_cap) ? q_cap : static_cast<int>(s);
+        parents[count + __popc(mask & ((1u << lane) - 1u))] = make_int2(m * ldc, sat);
+      }
+      count += __popc(mask);
+    }
+    if (lane == 0) num_parents = count;
+  }
+  block_zero(hist, round_up4(len));
+  __syncthreads();
+
+  const int np = num_parents;
+  const Code* child_col = codes_cm + static_cast<int64_t>(row % n) * ldc;
+  for (int u = threadIdx.x; u < U; u += blockDim.x) {
+    int cfg = 0;  // below n * S < 2^31: every term is below S
+    for (int p = 0; p < np; ++p) {
+      const int2 par = parents[p];
+      cfg += par.y * static_cast<int>(__ldg(codes_cm + par.x + u));
+    }
+    const int cell = min(cfg, q_cap - 1) * r_max + static_cast<int>(__ldg(child_col + u));
+    tile_add(hist, cell, t0, len, __ldg(w + u));
+  }
+  __syncthreads();
+  block_store_bins(hist, out + row * static_cast<int64_t>(S) + t0, len, (S & 3) == 0);
+}
+
+// Tiles of at most kWideTileBins bins, as even as multiples of 4 allow; every
+// tile starts below S.
+void wide_tiles(int S, int* tile, int* tiles) {
+  const int64_t even = (static_cast<int64_t>(S) + kWideTileBins - 1) / kWideTileBins;
+  *tile = round_up4(static_cast<int>((S + even - 1) / even));
+  *tiles = static_cast<int>((static_cast<int64_t>(S) + *tile - 1) / *tile);
+}
+
+// One block per (row, tile); 0 blocks if that count leaves the grid's range.
+int64_t wide_blocks(int64_t R, int tiles) {
+  const int64_t blocks = R * tiles;
+  return blocks < 0x7fffffff ? blocks : 0;
+}
+
 // Warps per block for a per-warp shared-memory need; 0 if one warp does not fit.
 int warps_for(int per_warp_bytes) {
   const int warps = kMaxSharedBytes / per_warp_bytes;
@@ -309,6 +439,27 @@ int launch_fused(const void* strides_t, const void* codes_cm, const void* w, voi
       static_cast<const float*>(strides_t), static_cast<const Code*>(codes_cm),
       static_cast<const uint32_t*>(w), static_cast<float*>(out), R, n, U, ldc, q_cap, r_max,
       region_words, small_span);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename Code>
+int launch_fused_wide(const void* strides_t, const void* codes_cm, const void* w, void* out,
+                      int64_t R, int n, int U, int ldc, int q_cap, int r_max,
+                      cudaStream_t stream) {
+  int tile, tiles;
+  wide_tiles(q_cap * r_max, &tile, &tiles);
+  const int64_t blocks = wide_blocks(R, tiles);
+  const size_t smem = static_cast<size_t>(round_up4(tile)) * 4 + n * sizeof(int2);
+  if (blocks == 0 || smem > static_cast<size_t>(kMaxSharedBytes)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaError_t err = allow_shared(contingency_counts_fused_wide_kernel<Code>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  contingency_counts_fused_wide_kernel<Code><<<static_cast<unsigned>(blocks), kWideThreads, smem,
+                                               stream>>>(
+      static_cast<const float*>(strides_t), static_cast<const Code*>(codes_cm),
+      static_cast<const uint32_t*>(w), static_cast<float*>(out), n, U, ldc, q_cap, r_max, tile,
+      tiles);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -354,6 +505,40 @@ extern "C" int contingency_counts_fused_launch(const void* strides_t, const void
   if (code_bytes == 4) {
     return launch_fused<int32_t>(strides_t, codes_cm, w, out, R, n, U, ldc, q_cap, r_max,
                                  small_span, s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The wide route of the seg entry: the contract of contingency_counts_launch
+// for any S in [1, 2^31); R * ceil(S / 16384) blocks must stay below 2^31.
+extern "C" int contingency_counts_wide_launch(const void* w, const void* seg, void* out, int64_t R,
+                                              int U, int S, void* stream) {
+  int tile, tiles;
+  wide_tiles(S, &tile, &tiles);
+  const int64_t blocks = wide_blocks(R, tiles);
+  if (blocks == 0) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = static_cast<size_t>(round_up4(tile)) * 4;
+  cudaError_t err = allow_shared(contingency_counts_wide_kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  contingency_counts_wide_kernel<<<static_cast<unsigned>(blocks), kWideThreads, smem,
+                                   static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(w), static_cast<const int32_t*>(seg),
+      static_cast<float*>(out), U, S, tile, tiles);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The wide route of the fused entry: the contract of
+// contingency_counts_fused_launch (small_span aside) for any S = q_cap*r_max.
+extern "C" int contingency_counts_fused_wide_launch(const void* strides_t, const void* codes_cm,
+                                                    int code_bytes, const void* w, void* out,
+                                                    int64_t R, int n, int U, int ldc, int q_cap,
+                                                    int r_max, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (code_bytes == 1) {
+    return launch_fused_wide<uint8_t>(strides_t, codes_cm, w, out, R, n, U, ldc, q_cap, r_max, s);
+  }
+  if (code_bytes == 4) {
+    return launch_fused_wide<int32_t>(strides_t, codes_cm, w, out, R, n, U, ldc, q_cap, r_max, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

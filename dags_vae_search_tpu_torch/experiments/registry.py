@@ -2,14 +2,16 @@
 settings.
 
 Counterpart of ``dags_vae_search_tpu/experiments/registry.py``, with the
-same values.  Every experiment here simulates its dataset from ``seed``
-(``dataset_csv`` is None); a real ``target.csv`` is loaded with
-``scoring.datasets.load_target_csv``.
+same values.  An experiment scores against the reference's
+``<REFERENCE_DATA>/bn_<name>/target.csv`` when that file exists (loaded by
+``scoring.datasets.load_target_csv``, which needs pandas), and otherwise
+simulates its dataset from ``seed`` (``dataset_csv`` is None).
 """
 
 from __future__ import annotations
 
 import math
+import os
 from typing import Dict
 
 from dags_vae_search_tpu_torch.scoring.catalog import CATALOG, density_cap
@@ -20,6 +22,15 @@ from dags_vae_search_tpu_torch.utils.config import (
     ModelConfig,
     SearchConfig,
 )
+
+
+#: where the reference repository keeps its datasets, ``bn_<name>/target.csv``
+REFERENCE_DATA = "/root/reference/data"
+
+
+def _reference_csv(name: str):
+    path = os.path.join(REFERENCE_DATA, f"bn_{name}", "target.csv")
+    return path if os.path.exists(path) else None
 
 
 def _readout_latent(n: int, cap: int = 1792) -> int:
@@ -49,6 +60,7 @@ def _catalog_experiment(
         name=name,
         num_vertices=n,
         label_cardinality=n,
+        dataset_csv=_reference_csv(name),
         simulate_max_card=max_card,
         model=model or ModelConfig(),
         corpus=CorpusConfig(

@@ -15,8 +15,11 @@ files each:
   exact bytes of the parquet strings.
 
 The writers write ``.npz``; the readers take either, by suffix.  Both decode
-through :func:`decode_columns`.  pyarrow is imported inside the functions
-that need it, and a parquet input without pyarrow raises ``ImportError``.
+through :func:`decode_columns`, which scatters the edge bytes with the host
+C++ codec (``native/``, built at first use) when it loads and with numpy
+(:func:`decode_edges_numpy`) otherwise; the two are bit-equal.  pyarrow is
+imported inside the functions that need it, and a parquet input without
+pyarrow raises ``ImportError``.
 """
 
 from __future__ import annotations
@@ -26,6 +29,8 @@ import re
 from typing import Dict, Iterator, List, Sequence, Tuple
 
 import numpy as np
+
+from dags_vae_search_tpu_torch import native
 
 #: the suffixes a dataset part may have
 SUFFIXES = (".parquet", ".npz")
@@ -58,13 +63,22 @@ def decode_columns(
 ) -> Tuple[np.ndarray, np.ndarray]:
     """``(labels int32[B, N], adj float32[B, N, N])`` from the label columns
     and, for each ``i >= 1``, the ``rows * i`` ASCII '0'/'1' bytes of column
-    ``e{i}``: ``adj[:, :i, i] = bits - ord("0")``."""
+    ``e{i}``: ``adj[:, :i, i] = bits - ord("0")``, through the native codec
+    when it loads."""
     n = len(labels)
     out_labels = np.stack([np.asarray(col).astype(np.int32) for col in labels], axis=1)
+    lib = native.load()
+    if lib is not None:
+        return out_labels, native.decode_edges(bits, n, rows, lib)
+    return out_labels, decode_edges_numpy(bits, n, rows)
+
+
+def decode_edges_numpy(bits: Dict[int, np.ndarray], n: int, rows: int) -> np.ndarray:
+    """:func:`native.decode_edges` in numpy: ``adj`` float32[rows, n, n]."""
     adj = np.zeros((rows, n, n), dtype=np.float32)
     for i in range(1, n):
         adj[:, :i, i] = np.asarray(bits[i]).reshape(rows, i) - ord("0")
-    return out_labels, adj
+    return adj
 
 
 def encode_bits(adj: np.ndarray, i: int) -> np.ndarray:

@@ -192,13 +192,24 @@ class PaceVAE(nn.Module):
     def reparameterize(
         self, mu: torch.Tensor, logvar: torch.Tensor,
         generator: Optional[torch.Generator] = None,
+        shard: Optional[Tuple[int, int]] = None,
     ) -> torch.Tensor:
-        """``mu`` in eval mode; ``mu + eps_scale * N(0, 1) * std`` in train mode."""
+        """``mu`` in eval mode; ``mu + eps_scale * N(0, 1) * std`` in train mode.
+
+        ``shard = (rank, world)``: the noise of a batch ``world`` times as
+        large is drawn and this rank's rows are kept, so ranks whose
+        generators are in one state split the draw one process makes."""
         if not self.training:
             return mu
         std = torch.exp(0.5 * logvar)
-        eps = torch.randn(mu.shape, generator=generator, device=mu.device) * self.epsilon_scale
-        return mu + eps * std
+        if shard is None:
+            eps = torch.randn(mu.shape, generator=generator, device=mu.device)
+        else:
+            rank, world = shard
+            b = mu.shape[0]
+            eps = torch.randn((world * b, *mu.shape[1:]), generator=generator,
+                              device=mu.device)[rank * b:(rank + 1) * b]
+        return mu + eps * self.epsilon_scale * std
 
     # ------------------------------------------------------------- decoding
 
@@ -246,14 +257,19 @@ class PaceVAE(nn.Module):
         adj: torch.Tensor,
         allowed: Optional[torch.Tensor] = None,
         generator: Optional[torch.Generator] = None,
+        noise_generator: Optional[torch.Generator] = None,
+        noise_shard: Optional[Tuple[int, int]] = None,
     ):
         """(total, recon_nll, kld) on PACE-wrapped tensors, summed over the
-        batch."""
+        batch.  Dropout draws from ``generator``, the reparameterization
+        noise from ``noise_generator`` (``generator`` when None) as
+        :meth:`reparameterize` with ``shard=noise_shard`` draws it."""
         if allowed is None:
             allowed = attention_allowed(adj)
         n = labels.shape[1]
         mu, logvar = self.encode_wrapped(labels, adj, allowed, generator)
-        z = self.reparameterize(mu, logvar, generator)
+        z = self.reparameterize(mu, logvar, generator if noise_generator is None else noise_generator,
+                                noise_shard)
         out = self.decoder_output(z, labels, adj, allowed, generator)
 
         # Node NLL: position t predicts the label of vertex t+1, t < n-1.
@@ -286,10 +302,14 @@ class PaceVAE(nn.Module):
         return -log_likelihood + self.beta * kld, -log_likelihood, kld
 
     def loss(self, labels: torch.Tensor, adj: torch.Tensor,
-             generator: Optional[torch.Generator] = None):
-        """(total, recon_nll, kld) from labeled (real-vertex) tensors."""
+             generator: Optional[torch.Generator] = None,
+             noise_generator: Optional[torch.Generator] = None,
+             noise_shard: Optional[Tuple[int, int]] = None):
+        """(total, recon_nll, kld) from labeled (real-vertex) tensors; the
+        generators and ``noise_shard`` as :meth:`loss_wrapped` takes them."""
         wrapped = pace_wrap(labels, adj)
-        return self.loss_wrapped(wrapped.labels, wrapped.adj, generator=generator)
+        return self.loss_wrapped(wrapped.labels, wrapped.adj, generator=generator,
+                                 noise_generator=noise_generator, noise_shard=noise_shard)
 
     def forward(self, labels: torch.Tensor, adj: torch.Tensor):
         return self.loss(labels, adj)

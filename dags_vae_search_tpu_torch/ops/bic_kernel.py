@@ -14,9 +14,16 @@ Source of both kernels: ``csrc/contingency_counts.cu``.
 - :func:`contingency_counts_kernel` takes the cell table ready-made, the
   one-to-one counterpart of the Pallas kernel's contract.
 
+Each entry has two routes, chosen by :func:`route`: rows whose S bins fit one
+warp's share of a block's shared memory take the narrow kernel (one warp per
+row), wider rows the wide kernel (S tiled over blocks,
+:func:`contingency_counts_wide` and :func:`contingency_counts_fused_wide`).
+Each route's wrapper counts its own launches in ``.launches``.
+
 On a CUDA tensor each wrapper launches its kernel or raises; on a CPU tensor
-it runs its plain torch version (``*_plain``).  The TPU kernel's 128-aligned
-row padding is not needed here: a warp strides over any U.
+it runs its plain torch version (``*_plain``), which has no bound on S.  The
+TPU kernel's 128-aligned row padding is not needed here: a warp strides over
+any U.
 
 Weights are multiplicities: non-negative integers summing below 2^24, as
 ``BicScorer`` makes them.  The kernels count in integers (their shared-memory
@@ -36,6 +43,8 @@ from dags_vae_search_tpu_torch.ops import _build, bic_torch
 
 #: Most shared memory one block can take on Hopper (227 KB).
 MAX_SHARED_BYTES = 232_448
+#: The most bins of one wide-kernel tile (``kWideTileBins`` in the source).
+WIDE_TILE_BINS = 16_384
 #: A row whose cells all lie below this many takes lane-private bins in the
 #: fused kernel (binary data: nodes with up to 3 parents); others take
 #: shared atomics.  ``chip_smoke.py`` times the choices around it.
@@ -71,8 +80,9 @@ def contingency_counts_plain(w: torch.Tensor, seg: torch.Tensor, S: int) -> torc
     return out.reshape(r, S)
 
 
-def _launch(w: torch.Tensor, seg: torch.Tensor, S: int) -> torch.Tensor:
-    fn = _function("contingency_counts_launch", [
+def _launch(w: torch.Tensor, seg: torch.Tensor, S: int, wide: bool = False) -> torch.Tensor:
+    name = "contingency_counts_wide_launch" if wide else "contingency_counts_launch"
+    fn = _function(name, [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
     ])
@@ -82,36 +92,64 @@ def _launch(w: torch.Tensor, seg: torch.Tensor, S: int) -> torch.Tensor:
     with torch.cuda.device(seg.device):
         err = fn(w_int.data_ptr(), seg.data_ptr(), out.data_ptr(), r, u, S, _stream(seg))
     if err != 0:
-        raise RuntimeError(f"contingency_counts kernel launch failed: cudaError {err}")
+        raise RuntimeError(f"{name.removesuffix('_launch')} kernel launch failed: cudaError {err}")
     return out
 
 
-def contingency_counts_kernel(w: torch.Tensor, seg: torch.Tensor, S: int) -> torch.Tensor:
-    """Weighted per-row histograms f32[R, S] of seg i32[R, U] with weights
-    w f32[U]: the CUDA kernel on a CUDA tensor, the plain version on a CPU
-    tensor.  ``contingency_counts_kernel.launches`` counts kernel launches."""
+def _check_seg(w: torch.Tensor, seg: torch.Tensor, S: int) -> None:
     if w.dtype != torch.float32 or seg.dtype != torch.int32:
         raise TypeError(f"want w float32 and seg int32, got {w.dtype}, {seg.dtype}")
     if w.dim() != 1 or seg.dim() != 2 or seg.shape[1] != w.shape[0]:
         raise ValueError(f"want w [U] and seg [R, U], got {tuple(w.shape)}, {tuple(seg.shape)}")
     if w.device != seg.device:
         raise ValueError(f"w on {w.device} but seg on {seg.device}")
-    if not 0 < S or S * 4 > MAX_SHARED_BYTES:
-        raise ValueError(f"S={S} bins need {S * 4} bytes; a block has {MAX_SHARED_BYTES}")
+    if not 0 < S < 2**31:
+        raise ValueError(f"S={S} bins outside [1, 2^31)")
+    if seg.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no contingency kernel for device {seg.device}")
+    if seg.device.type == "cuda":
+        if not (w.is_contiguous() and seg.is_contiguous()):
+            raise ValueError("w and seg must be contiguous")
+        if not 0 < seg.shape[0] < 2**31 or seg.shape[1] >= 2**31:
+            raise ValueError(f"seg shape {tuple(seg.shape)} outside the kernel's grid")
+
+
+def contingency_counts_kernel(w: torch.Tensor, seg: torch.Tensor, S: int) -> torch.Tensor:
+    """Weighted per-row histograms f32[R, S] of seg i32[R, U] with weights
+    w f32[U]: a CUDA kernel on a CUDA tensor (the narrow one, or the wide one
+    where :func:`route` says so), the plain version on a CPU tensor.
+    ``contingency_counts_kernel.launches`` counts launches of the narrow
+    kernel."""
+    _check_seg(w, seg, S)
     if seg.device.type == "cpu":
         return contingency_counts_plain(w, seg, S)
-    if seg.device.type != "cuda":
-        raise ValueError(f"no contingency kernel for device {seg.device}")
-    if not (w.is_contiguous() and seg.is_contiguous()):
-        raise ValueError("w and seg must be contiguous")
-    if not 0 < seg.shape[0] < 2**31 or seg.shape[1] >= 2**31:
-        raise ValueError(f"seg shape {tuple(seg.shape)} outside the kernel's grid")
+    if route(seg_warp_bytes(S)) == "wide":
+        return _launch_wide(w, seg, S)
     out = _launch(w, seg, S)
     contingency_counts_kernel.launches += 1
     return out
 
 
 contingency_counts_kernel.launches = 0
+
+
+def _launch_wide(w: torch.Tensor, seg: torch.Tensor, S: int) -> torch.Tensor:
+    out = _launch(w, seg, S, wide=True)
+    contingency_counts_wide.launches += 1
+    return out
+
+
+def contingency_counts_wide(w: torch.Tensor, seg: torch.Tensor, S: int) -> torch.Tensor:
+    """:func:`contingency_counts_kernel`'s function through the wide kernel
+    (any S) on a CUDA tensor, the plain version on a CPU tensor.
+    ``contingency_counts_wide.launches`` counts its launches."""
+    _check_seg(w, seg, S)
+    if seg.device.type == "cpu":
+        return contingency_counts_plain(w, seg, S)
+    return _launch_wide(w, seg, S)
+
+
+contingency_counts_wide.launches = 0
 
 
 # ---- the fused entry -------------------------------------------------------
@@ -145,44 +183,53 @@ def contingency_counts_fused_plain(
     return contingency_counts_plain(w, seg.reshape(b * n, u), q_cap * r_max)
 
 
-def _fused_warp_bytes(S: int, n: int) -> int:
-    """Shared memory one warp of the fused kernel takes (as the launcher
-    computes it): S bins or 32 lane-private copies of SMALL_SPAN bins, and
-    the row's parent list."""
+def seg_warp_bytes(S: int) -> int:
+    """Shared memory one warp of the narrow seg kernel takes (as the
+    launcher computes it): S uint32 bins, rounded up to 4."""
+    return 4 * _round_up(S, 4)
+
+
+def fused_warp_bytes(S: int, n: int) -> int:
+    """Shared memory one warp of the narrow fused kernel takes (as the
+    launcher computes it): S bins or 32 lane-private copies of SMALL_SPAN
+    bins, and the row's parent list of n variables."""
     return 4 * _round_up(max(S, 32 * min(SMALL_SPAN, S)), 4) + 8 * n
 
 
-def _launch_fused(strides_t, codes_cm, w, q_cap, r_max, small_span=SMALL_SPAN):
-    fn = _function("contingency_counts_fused_launch", [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_void_p,
-    ])
+def route(warp_bytes: int) -> str:
+    """The kernel for rows whose narrow kernel needs ``warp_bytes`` of
+    shared memory per warp (:func:`seg_warp_bytes`, :func:`fused_warp_bytes`):
+    ``"narrow"`` (one warp per row) when that fits a block, else ``"wide"``
+    (S tiled over blocks)."""
+    return "narrow" if warp_bytes <= MAX_SHARED_BYTES else "wide"
+
+
+def _launch_fused(strides_t, codes_cm, w, q_cap, r_max, small_span=SMALL_SPAN, wide=False):
     b, n, _ = strides_t.shape
+    ints = [ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int]
+    head = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+    if wide:
+        name = "contingency_counts_fused_wide_launch"
+        fn = _function(name, head + ints + [ctypes.c_void_p])
+        tail = ()
+    else:
+        name = "contingency_counts_fused_launch"
+        fn = _function(name, head + ints + [ctypes.c_int, ctypes.c_void_p])
+        tail = (small_span,)
     w_int = w.to(torch.int32)  # the kernel reads the multiplicities as uint32
     out = torch.empty((b * n, q_cap * r_max), dtype=torch.float32, device=strides_t.device)
     with torch.cuda.device(strides_t.device):
         err = fn(
             strides_t.data_ptr(), codes_cm.data_ptr(), codes_cm.element_size(), w_int.data_ptr(),
-            out.data_ptr(), b * n, n, w.shape[0], codes_cm.shape[1], q_cap, r_max, small_span,
+            out.data_ptr(), b * n, n, w.shape[0], codes_cm.shape[1], q_cap, r_max, *tail,
             _stream(strides_t),
         )
     if err != 0:
-        raise RuntimeError(f"contingency_counts_fused kernel launch failed: cudaError {err}")
+        raise RuntimeError(f"{name.removesuffix('_launch')} kernel launch failed: cudaError {err}")
     return out
 
 
-def contingency_counts_fused(
-    strides_t: torch.Tensor,  # float32[B, n, n], strides_t[b, i, m] = stride of parent m of i
-    codes_cm: torch.Tensor,  # uint8 or int32 [n, U16] from column_major_codes
-    w: torch.Tensor,  # float32[U] multiplicities
-    q_cap: int,
-    r_max: int,
-) -> torch.Tensor:
-    """Counts f32[B*n, q_cap*r_max] of every (candidate, node) row straight
-    from the parent strides: the CUDA kernel on a CUDA tensor, the plain
-    version on a CPU tensor.  Codes must lie in [0, r_max).
-    ``contingency_counts_fused.launches`` counts kernel launches."""
+def _check_fused(strides_t, codes_cm, w, q_cap, r_max) -> None:
     if strides_t.dtype != torch.float32 or w.dtype != torch.float32:
         raise TypeError(f"want float32 strides and w, got {strides_t.dtype}, {w.dtype}")
     if codes_cm.dtype not in (torch.uint8, torch.int32):
@@ -199,25 +246,64 @@ def contingency_counts_fused(
     if not (strides_t.device == codes_cm.device == w.device):
         raise ValueError(f"strides on {strides_t.device}, codes on {codes_cm.device}, w on {w.device}")
     S = q_cap * r_max
-    if q_cap < 1 or r_max < 1 or _fused_warp_bytes(S, n) > MAX_SHARED_BYTES:
-        raise ValueError(f"q_cap={q_cap}, r_max={r_max}, n={n} need {_fused_warp_bytes(S, n)} "
-                         f"bytes; a block has {MAX_SHARED_BYTES}")
+    if q_cap < 1 or r_max < 1:
+        raise ValueError(f"q_cap={q_cap}, r_max={r_max} give no bins")
     if not 0 < b * n < 2**31 or n * S >= 2**31 or n * codes_cm.shape[1] >= 2**31:
         raise ValueError(f"B={b}, n={n}, S={S}, U16={codes_cm.shape[1]} outside the kernel's range")
+    if strides_t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no contingency kernel for device {strides_t.device}")
+    if strides_t.device.type == "cuda":
+        if not (strides_t.is_contiguous() and codes_cm.is_contiguous() and w.is_contiguous()):
+            raise ValueError("strides, codes and w must be contiguous")
+        if codes_cm.data_ptr() % 16:
+            raise ValueError("codes must start on a 16-byte boundary")
+
+
+def contingency_counts_fused(
+    strides_t: torch.Tensor,  # float32[B, n, n], strides_t[b, i, m] = stride of parent m of i
+    codes_cm: torch.Tensor,  # uint8 or int32 [n, U16] from column_major_codes
+    w: torch.Tensor,  # float32[U] multiplicities
+    q_cap: int,
+    r_max: int,
+) -> torch.Tensor:
+    """Counts f32[B*n, q_cap*r_max] of every (candidate, node) row straight
+    from the parent strides: a CUDA kernel on a CUDA tensor (the narrow one,
+    or the wide one where :func:`route` says so), the plain version on a CPU
+    tensor.  Codes must lie in [0, r_max).
+    ``contingency_counts_fused.launches`` counts launches of the narrow
+    kernel."""
+    _check_fused(strides_t, codes_cm, w, q_cap, r_max)
     if strides_t.device.type == "cpu":
         return contingency_counts_fused_plain(strides_t, codes_cm, w, q_cap, r_max)
-    if strides_t.device.type != "cuda":
-        raise ValueError(f"no contingency kernel for device {strides_t.device}")
-    if not (strides_t.is_contiguous() and codes_cm.is_contiguous() and w.is_contiguous()):
-        raise ValueError("strides, codes and w must be contiguous")
-    if codes_cm.data_ptr() % 16:
-        raise ValueError("codes must start on a 16-byte boundary")
+    if route(fused_warp_bytes(q_cap * r_max, strides_t.shape[1])) == "wide":
+        return _launch_fused_wide(strides_t, codes_cm, w, q_cap, r_max)
     out = _launch_fused(strides_t, codes_cm, w, q_cap, r_max)
     contingency_counts_fused.launches += 1
     return out
 
 
 contingency_counts_fused.launches = 0
+
+
+def _launch_fused_wide(strides_t, codes_cm, w, q_cap, r_max) -> torch.Tensor:
+    out = _launch_fused(strides_t, codes_cm, w, q_cap, r_max, wide=True)
+    contingency_counts_fused_wide.launches += 1
+    return out
+
+
+def contingency_counts_fused_wide(
+    strides_t: torch.Tensor, codes_cm: torch.Tensor, w: torch.Tensor, q_cap: int, r_max: int
+) -> torch.Tensor:
+    """:func:`contingency_counts_fused`'s function through the wide kernel
+    (any S) on a CUDA tensor, the plain version on a CPU tensor.
+    ``contingency_counts_fused_wide.launches`` counts its launches."""
+    _check_fused(strides_t, codes_cm, w, q_cap, r_max)
+    if strides_t.device.type == "cpu":
+        return contingency_counts_fused_plain(strides_t, codes_cm, w, q_cap, r_max)
+    return _launch_fused_wide(strides_t, codes_cm, w, q_cap, r_max)
+
+
+contingency_counts_fused_wide.launches = 0
 
 
 def contingency_counts(

@@ -13,10 +13,10 @@ The counts are the seg entry of the contingency kernel
 (``ops/bic_kernel.py::contingency_counts_kernel``): F rows of cells
 ``seg = clip(cfg, 0, q_cap-1) * r_max + child`` over the U unique rows,
 weighted by their multiplicities, S = q_cap * r_max bins.  On a CUDA tensor
-the wrapper launches the kernel or raises; on a CPU tensor it runs its
-plain version.  It raises (``ValueError``, on every device, at the first
-score call) when S bins do not fit one block's shared memory, as the fused
-entry does for ``BicScorer``: there is no other path to fall back to.
+the wrapper launches the kernel (its wide route when S bins do not fit one
+warp's shared memory, e.g. q_cap 4,096 x 16 states) or raises; on a CPU
+tensor it runs its plain version.  A call writes F * S float32 counts: at
+S = 65,536 a chunk of 4,096 families is 1 GiB.
 """
 
 from __future__ import annotations

@@ -1,20 +1,22 @@
-"""Island latent search on one card (torch).
+"""Island latent search (torch).
 
 Counterpart of ``dags_vae_search_tpu/search/islands.py``.  Each island runs
 its own CEM chain (own mean and sigma); the island axis is a batch axis, so
 one decode and one score call per iteration cover every island.
 Migration periodically re-centres the worst island on the global best
-latent.  The JAX package's ``mesh`` argument (the island axis sharded over
-chips) waits for the port's distributed layer.
+latent.  With a ``mesh`` (``parallel.mesh``) the island axis is split over
+the ranks, as the JAX package shards it over chips.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
+import torch.distributed as dist
 
 from dags_vae_search_tpu_torch.models.pace_vae import PaceVAE
+from dags_vae_search_tpu_torch.parallel import mesh as mesh_lib
 from dags_vae_search_tpu_torch.search.latent import SearchResult, decode_and_score
 
 
@@ -74,6 +76,16 @@ def migrate(state: IslandState, init_sigma: torch.Tensor) -> IslandState:
     return state._replace(mean=mean, sigma=sigma)
 
 
+def _gather(mesh: mesh_lib.Mesh, state: IslandState) -> IslandState:
+    """Every rank's block of islands, concatenated in rank order."""
+    out = []
+    for x in state:
+        parts = [torch.empty_like(x) for _ in range(mesh.world_size)]
+        dist.all_gather(parts, x.contiguous(), group=mesh.group)
+        out.append(torch.cat(parts))
+    return IslandState(*out)
+
+
 def island_cem_search(
     model: PaceVAE,
     scorer,
@@ -92,6 +104,7 @@ def island_cem_search(
     basis=None,
     center=None,
     device="cuda",
+    mesh: Optional[mesh_lib.Mesh] = None,
 ) -> SearchResult:
     """Multi-island CEM with periodic best-latent migration.
 
@@ -105,8 +118,33 @@ def island_cem_search(
     and candidates decode at ``center + c @ basis``.  ``init_means``,
     ``init_sigma`` and ``sigma_floor`` are then in coordinate space
     (per-dimension vectors allowed).
+
+    ``mesh``: the islands split over its ranks in contiguous blocks
+    (``num_islands`` a multiple of its size), on ``mesh.device``.  Every
+    rank draws the whole ``[I, P, dim]`` noise from ``seed``, decodes,
+    scores and updates its own islands (decode draws from a generator of
+    its own (seed, iteration, rank)), and an ``all_gather`` of the island
+    states gives every rank all of them, so all migrate alike and return
+    the same result.  With mode decodes (temperature <= 1e-3) that result
+    is the one-process run's; under sampling the decodes differ, and the
+    evaluation count and history length stay those of one process.
     """
+    if mesh is not None:
+        device = mesh.device
+        mine = mesh.local(num_islands)
     gen = torch.Generator(device=device).manual_seed(seed)
+
+    def decode_gen(step: int) -> torch.Generator:
+        if mesh is None:
+            return gen
+        seed_r = mesh_lib.rank_seed(seed, step, mesh.rank)
+        return torch.Generator(device=device).manual_seed(seed_r)
+
+    def local(st: IslandState) -> IslandState:
+        return st if mesh is None else IslandState(*(x[mine] for x in st))
+
+    def merged(st: IslandState) -> IslandState:
+        return st if mesh is None else _gather(mesh, st)
 
     def as_f32(x):
         return torch.as_tensor(x, dtype=torch.float32, device=device)
@@ -139,16 +177,17 @@ def island_cem_search(
         temp = t_hi + (t_lo - t_hi) * (it / max(iters - 1, 1))
         noise = torch.randn((num_islands, population, dim), generator=gen, device=device)
         z = state.mean[:, None, :] + state.sigma[:, None, :] * noise
+        z = z if mesh is None else z[mine]
+        k = z.shape[0]
         scores, labels, adj = decode_and_score(
-            model, scorer, to_full(z.reshape(num_islands * population, dim)), gen,
+            model, scorer, to_full(z.reshape(k * population, dim)), decode_gen(it),
             temperature=temp,
         )
         n = labels.shape[-1]
-        state = island_update(
-            state, z, scores.reshape(num_islands, population),
-            labels.reshape(num_islands, population, n),
-            adj.reshape(num_islands, population, n, n), n_elite, smoothing, sigma_floor,
-        )
+        state = merged(island_update(
+            local(state), z, scores.reshape(k, population), labels.reshape(k, population, n),
+            adj.reshape(k, population, n, n), n_elite, smoothing, sigma_floor,
+        ))
         if (it + 1) % migrate_every == 0:
             state = migrate(state, init_sigma)
         history.append(float(state.best_score.max()))
@@ -156,28 +195,30 @@ def island_cem_search(
     evals = iters * num_islands * population
     if exploit_repeats > 0:
         # sharp re-decodes of every island's incumbent latent
-        rep_z = state.best_z.repeat_interleave(exploit_repeats, dim=0)
+        mine_state = local(state)
+        k = mine_state.best_z.shape[0]
+        rep_z = mine_state.best_z.repeat_interleave(exploit_repeats, dim=0)
         scores, labels, adj = decode_and_score(
-            model, scorer, to_full(rep_z), gen, temperature=min(t_lo, 0.1)
+            model, scorer, to_full(rep_z), decode_gen(iters), temperature=min(t_lo, 0.1)
         )
-        evals += rep_z.shape[0]
+        evals += num_islands * exploit_repeats
         n = labels.shape[-1]
-        scores = scores.reshape(num_islands, exploit_repeats)
+        scores = scores.reshape(k, exploit_repeats)
         r_best = torch.argmax(scores, dim=1)
         r_score = _pick(scores, r_best)
-        improved = r_score > state.best_score
-        state = state._replace(
-            best_score=torch.where(improved, r_score, state.best_score),
+        improved = r_score > mine_state.best_score
+        state = merged(mine_state._replace(
+            best_score=torch.where(improved, r_score, mine_state.best_score),
             best_labels=torch.where(
-                improved[:, None], _pick(labels.reshape(num_islands, exploit_repeats, n), r_best),
-                state.best_labels,
+                improved[:, None], _pick(labels.reshape(k, exploit_repeats, n), r_best),
+                mine_state.best_labels,
             ),
             best_adj=torch.where(
                 improved[:, None, None],
-                _pick(adj.reshape(num_islands, exploit_repeats, n, n), r_best),
-                state.best_adj,
+                _pick(adj.reshape(k, exploit_repeats, n, n), r_best),
+                mine_state.best_adj,
             ),
-        )
+        ))
         history.append(float(state.best_score.max()))
 
     g_idx = int(torch.argmax(state.best_score))

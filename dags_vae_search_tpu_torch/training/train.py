@@ -21,6 +21,21 @@ permutation per epoch, drawn as the JAX package draws it):
 Dropout and the reparameterization noise draw from one ``torch.Generator``
 on the model's device, seeded from ``TrainConfig.seed`` and advanced step
 by step, so both loops train the same parameters from the same seed.
+
+Data parallel (``mesh``, a ``parallel.mesh.Mesh``): each rank holds the
+parameters (broadcast from rank 0 by ``init_state``) and the whole corpus,
+draws the same epoch permutation, takes its contiguous slice of every batch
+and computes its loss and gradients; one ``all_reduce(SUM)`` per step of
+the flattened gradients and the three losses then gives every rank the
+global batch's sums, before the clip, as the one-process step has them
+(the loss is a batch sum, and ``DistributedDataParallel``'s average would
+shrink the gradients by the world size and move the clip).  The noise of
+the global batch is drawn on every rank from the shared seed and sliced,
+so with dropout 0 a mesh run computes the one-process run (up to the order
+of float32 sums).  Dropout masks come from a generator of each rank's own
+(seed, rank), so with dropout > 0 a mesh run equals the one-process run in
+distribution only.  A world of one is bit-identical to ``mesh=None``.
+Checkpoints are written by rank 0.
 """
 
 from __future__ import annotations
@@ -33,6 +48,7 @@ import numpy as np
 import torch
 
 from dags_vae_search_tpu_torch.models.pace_vae import PaceVAE
+from dags_vae_search_tpu_torch.parallel import mesh as mesh_lib
 from dags_vae_search_tpu_torch.training import data as data_lib
 from dags_vae_search_tpu_torch.utils.debug import nan_guard
 from dags_vae_search_tpu_torch.utils.profiling import StepTimer, annotate
@@ -130,11 +146,23 @@ def _device(model: torch.nn.Module) -> torch.device:
 
 
 class Trainer:
-    """Trains ``model`` (a ``PaceVAE`` on its device) under ``config``."""
+    """Trains ``model`` (a ``PaceVAE`` on its device) under ``config``; with
+    ``mesh``, data parallel over its ranks (the model on ``mesh.device``)."""
 
-    def __init__(self, model: PaceVAE, config: TrainConfig):
+    def __init__(self, model: PaceVAE, config: TrainConfig,
+                 mesh: Optional[mesh_lib.Mesh] = None):
         self.model = model
         self.config = config
+        self.mesh = mesh
+        # each rank's own dropout stream; the noise comes from fit's generator
+        self._mask_generator = None
+        if mesh is not None and mesh.world_size > 1:
+            self._mask_generator = torch.Generator(device=mesh.device)
+            self._seed_masks()
+
+    def _seed_masks(self) -> None:
+        if self._mask_generator is not None:
+            self._mask_generator.manual_seed(mesh_lib.rank_seed(self.config.seed, self.mesh.rank))
 
     def make_optimizer(self, model: torch.nn.Module) -> torch.optim.Adam:
         """Adam with optax's defaults (betas 0.9/0.999, eps 1e-8) at the
@@ -150,6 +178,8 @@ class Trainer:
         self.model.to("cpu")
         self.model.reset_parameters(torch.Generator().manual_seed(seed))
         self.model.to(dev)
+        if self.mesh is not None:
+            mesh_lib.replicate_tree(self.mesh, list(self.model.parameters()))
         return TrainState(self.model, self.make_optimizer(self.model), 0)
 
     def set_learning_rate(self, state: TrainState, lr: float) -> TrainState:
@@ -166,13 +196,38 @@ class Trainer:
         """Loss over the batch and its gradients in ``param.grad`` (train
         mode: dropout and the reparameterization noise on, drawn from
         ``generator``).  Returns the device tensor ``[total, recon, kld]``,
-        each summed over the batch."""
+        each summed over the batch.  With a mesh, ``labels`` and ``adj`` are
+        this rank's slice of the global batch, ``generator`` is in the same
+        state on every rank, and the gradients and losses returned are the
+        global batch's sums."""
         model = state.model
         model.train()
         state.optimizer.zero_grad(set_to_none=True)
-        total, recon, kld = model.loss(labels, adj, generator=generator)
+        mesh = self.mesh
+        if mesh is not None and mesh.world_size > 1:
+            total, recon, kld = model.loss(labels, adj, generator=self._mask_generator,
+                                           noise_generator=generator,
+                                           noise_shard=(mesh.rank, mesh.world_size))
+        else:
+            total, recon, kld = model.loss(labels, adj, generator=generator)
         total.backward()
-        return torch.stack([total, recon, kld]).detach()
+        losses = torch.stack([total, recon, kld]).detach()
+        if mesh is not None:
+            losses = self._sum_over_ranks(model, losses)
+        return losses
+
+    def _sum_over_ranks(self, model: torch.nn.Module, losses: torch.Tensor) -> torch.Tensor:
+        """One ``all_reduce(SUM)`` of the flattened gradients and the
+        losses; the gradients are written back in place."""
+        grads = [p.grad for p in model.parameters() if p.grad is not None]
+        flat = torch.cat([g.reshape(-1) for g in grads] + [losses])
+        torch.distributed.all_reduce(flat, op=torch.distributed.ReduceOp.SUM,
+                                     group=self.mesh.group)
+        offset = 0
+        for g in grads:
+            g.copy_(flat[offset:offset + g.numel()].view_as(g))
+            offset += g.numel()
+        return flat[offset:]
 
     def apply_gradients(self, state: TrainState) -> TrainState:
         """Global-norm clip then one Adam update from ``param.grad``."""
@@ -196,8 +251,12 @@ class Trainer:
     ) -> Tuple[TrainState, torch.Tensor]:
         """``block.shape[0]`` steps on batches gathered on the device from
         the resident corpus (dense float32 or packed uint8 adjacency);
-        nothing is read back.  Returns the state and the ``[K, 3]`` losses."""
+        nothing is read back.  Returns the state and the ``[K, 3]`` losses.
+        With a mesh, ``block`` holds the global batches' indices and each
+        rank gathers its slice of them."""
         n = corpus_labels.shape[-1]
+        if self.mesh is not None:
+            block = block[:, self.mesh.local(block.shape[1])]
         losses = []
         for step_idx in block:
             labels = corpus_labels.index_select(0, step_idx).to(torch.int32)
@@ -243,6 +302,7 @@ class Trainer:
         dev = _device(state.model)
         rng_np = np.random.default_rng(config.seed)
         generator = torch.Generator(device=dev).manual_seed(config.seed)
+        self._seed_masks()
         plateau = PlateauState(float("inf"), 0, config.learning_rate)
         history: List[Dict] = []
         time_start = time.time()
@@ -298,8 +358,11 @@ class Trainer:
                     # no per-step read back: the timer measures what the host
                     # waits for per step, the epoch clock the true step time
                     with timer.step(items=1), annotate("train_step"):
-                        labels = torch.as_tensor(labels, device=dev)
-                        adj = torch.as_tensor(adj, device=dev)
+                        if self.mesh is not None:
+                            labels, adj = mesh_lib.shard_batch(self.mesh, labels, adj)
+                        else:
+                            labels = torch.as_tensor(labels, device=dev)
+                            adj = torch.as_tensor(adj, device=dev)
                         state, last = self.train_step(state, labels, adj, generator)
                     batches += 1
                     if config.log_every and batches % config.log_every == 0:
@@ -344,7 +407,8 @@ class Trainer:
                 f"({entry['graphs_per_second']:,.0f} graphs/s, "
                 f"total {time.time() - time_start:.1f}s)"
             )
-            if checkpoint_fn is not None and epoch % config.checkpoint_every == 0:
+            if checkpoint_fn is not None and epoch % config.checkpoint_every == 0 \
+                    and (self.mesh is None or self.mesh.rank == 0):
                 checkpoint_fn(epoch, state)
 
         return state, history

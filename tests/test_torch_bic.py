@@ -99,7 +99,7 @@ def test_kernel_plain_version_drops_out_of_range_cells():
         (torch.ones(4), torch.zeros(2, 4, dtype=torch.int64), 8, TypeError),
         (torch.ones(5), torch.zeros(2, 4, dtype=torch.int32), 8, ValueError),
         (torch.ones(4), torch.zeros(8, dtype=torch.int32), 8, ValueError),
-        (torch.ones(4), torch.zeros(2, 4, dtype=torch.int32), 58_113, ValueError),
+        (torch.ones(4), torch.zeros(2, 4, dtype=torch.int32), 2**31, ValueError),
         (torch.ones(4), torch.zeros(2, 4, dtype=torch.int32), 0, ValueError),
     ],
     ids=["w_f64", "seg_i64", "u_mismatch", "seg_1d", "too_many_bins", "no_bins"],

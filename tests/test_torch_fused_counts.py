@@ -148,7 +148,7 @@ def _fused_args(**change):
         (dict(codes_cm=torch.zeros(4, 16, dtype=torch.uint8)), ValueError),
         (dict(codes_cm=torch.zeros(3, 4, dtype=torch.uint8)), ValueError),
         (dict(codes_cm=torch.zeros(3, 8, dtype=torch.uint8)), ValueError),
-        (dict(q_cap=29_057, r_max=2), ValueError),
+        (dict(q_cap=2**30, r_max=2), ValueError),  # n * S past int32
         (dict(q_cap=0), ValueError),
         (dict(strides_t=torch.zeros(0, 3, 3)), ValueError),
         (dict(w=torch.ones(5, 1)), ValueError),

@@ -340,3 +340,87 @@ def test_hill_climb_on_card_matches_cpu(cuda):
     np.testing.assert_allclose(got.history, want.history, rtol=1e-5, atol=1e-3)
     exact = cpu.score_exact(np.stack([got.best_adj, want.best_adj]))
     assert exact[0] == pytest.approx(exact[1], rel=1e-9)
+
+
+# ---- the wide-row route: S tiled over blocks -------------------------------
+
+WIDE_TILE = bic_kernel.WIDE_TILE_BINS
+
+
+def _launch_counts():
+    return (bic_kernel.contingency_counts_kernel.launches,
+            bic_kernel.contingency_counts_wide.launches,
+            bic_kernel.contingency_counts_fused.launches,
+            bic_kernel.contingency_counts_fused_wide.launches)
+
+
+@pytest.mark.parametrize(
+    "R,U,S",
+    [
+        (3, 1000, 65_536),  # q_cap 4,096 x 16 states
+        (4, 257, WIDE_TILE + 1),  # one bin past a tile: two tiles
+        (2, 1, WIDE_TILE + 1),  # U = 1
+        (2, 300, 58_113),  # one bin past the narrow kernel, S odd
+        (5, 300, 8),  # one tile, narrower than the tile
+    ],
+    ids=["s65536", "tile-plus-one", "u1", "past-narrow", "one-tile"],
+)
+def test_seg_wide_kernel_equals_plain_version(cuda, R, U, S):
+    w, seg = _inputs(R, U, S)
+    want = bic_kernel.contingency_counts_plain(w, seg, S)
+    before = _launch_counts()
+    got = bic_kernel.contingency_counts_wide(w.to(cuda), seg.to(cuda), S)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+    assert _launch_counts() == (before[0], before[1] + 1, *before[2:])
+    # the seg entry routes by bins: wide rows to the wide kernel
+    wide = bic_kernel.route(bic_kernel.seg_warp_bytes(S)) == "wide"
+    by_entry = bic_kernel.contingency_counts_kernel(w.to(cuda), seg.to(cuda), S)
+    assert torch.equal(by_entry.cpu(), want)
+    assert _launch_counts() == (before[0] + (not wide), before[1] + 1 + wide, *before[2:])
+
+
+@pytest.mark.parametrize(
+    "B,n,U,r_max,q_cap,indegrees",
+    [
+        (2, 6, 1500, 16, 4096, (0, 3, 5)),  # S = 65,536
+        (2, 5, 1, 16, 4096, (0, 1, 4)),  # U = 1
+        (2, 7, 700, 5, 3277, (0, 2, 6)),  # S = tile + 1, rows past q_cap
+        (2, 5, 500, 300, 220, (0, 1, 2)),  # r_max > 255: int32 codes, S = 66,000
+    ],
+    ids=["s65536", "u1", "tile-plus-one", "int32-codes"],
+)
+def test_fused_wide_kernel_equals_plain(cuda, B, n, U, r_max, q_cap, indegrees):
+    codes_u, w, cards, adj = _fused_inputs(B, n, U, r_max, indegrees)
+    strides, _ = bic_torch.parent_config_strides(adj, cards)
+    strides_t = strides.transpose(1, 2).contiguous()
+    codes_cm = bic_kernel.column_major_codes(codes_u, r_max)
+    args = (strides_t.to(cuda), codes_cm.to(cuda), w.to(cuda), q_cap, r_max)
+    want = bic_kernel.contingency_counts_fused_plain(strides_t, codes_cm, w, q_cap, r_max)
+    before = _launch_counts()
+    got = bic_kernel.contingency_counts_fused_wide(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+    assert _launch_counts() == (*before[:3], before[3] + 1)
+    wide = bic_kernel.route(bic_kernel.fused_warp_bytes(q_cap * r_max, n)) == "wide"
+    assert torch.equal(bic_kernel.contingency_counts_fused(*args).cpu(), want)
+    assert _launch_counts() == (*before[:2], before[2] + (not wide), before[3] + 1 + wide)
+    seg = bic_torch.cell_index(codes_u, strides, q_cap, r_max).reshape(B * n, U)
+    assert torch.equal(bic_kernel.contingency_counts_kernel(w.to(cuda), seg.to(cuda),
+                                                            q_cap * r_max).cpu(), want)
+
+
+def test_card_scorer_counts_wide_rows_as_the_cpu(cuda):
+    _, ds = make_synthetic_problem("barley", num_cases=800, max_card=16)
+    n = ds.num_variables
+    _, adj = sampler.sample_er_batch(np.random.default_rng(4), 3, n, 2 * n, n,
+                                     require_connected=False, max_in_degree=8)
+    card = BicScorer(ds, max_parents=8, device=cuda)
+    cpu = BicScorer(ds, max_parents=8, device="cpu", impl="plain")
+    assert (card.q_cap, card.r_max) == (4096, 16)
+    before = _launch_counts()
+    c_card, q_card = card.counts(adj)
+    c_cpu, q_cpu = cpu.counts(adj)
+    assert torch.equal(c_card.cpu(), c_cpu) and torch.equal(q_card.cpu(), q_cpu)
+    assert _launch_counts() == (*before[:3], before[3] + 1)
+    np.testing.assert_allclose(card.score_exact(adj), cpu.score_exact(adj), rtol=1e-9)

@@ -66,6 +66,8 @@ def test_port_has_the_slice_modules():
         "search/exact.py", "search/hillclimb.py", "search/delta_hillclimb.py",
         "search/islands.py", "surrogate/gp.py", "surrogate/dataset.py",
         "graphs/codec.py", "utils/viz.py", "experiments/runner.py", "experiments/results.py",
+        "native/__init__.py", "native/fast_codec.cpp", "parallel/__init__.py",
+        "parallel/mesh.py", "parallel/dryrun.py",
     }
     assert all((PORT / m).is_file() for m in modules)
 
