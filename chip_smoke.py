@@ -91,13 +91,31 @@ order; any failure exits non-zero:
    elements whose two gradients, at that step or before, differed by more
    than 1e-3 of the one-process one; (c)
    ``island_cem_search`` over the two ranks, 8 islands x 512, 2 iterations
-   in mode decode, its best equal to one process's.
+   in mode decode, its best equal to one process's;
+14. the registry's very-large tier at link width (n = 724, its model,
+   training and search settings; simulated binary data from the runner's
+   ``scoring_dataset``), cut in depth and counts only (``TIER_*``): the
+   runner's ``generate`` and ``split`` stages (sampler at the tier's density
+   cap, npz parts through the native codec), ``load_corpus`` (bit-packed);
+   the registry's ``Trainer`` with float32 and then bfloat16 operands: a
+   fit epoch, one timed chunk of ``steps_per_call`` steps, a
+   ``utils.profiling.trace`` window for the device's busy share, and the
+   eval-mode loss of a few test graphs against a CPU copy; checkpoint round
+   trip (bit-equal) and eval (``valid_ratio_mode`` 1); ``decode_and_score``
+   on a decoded population of islands x population latents, one delta climb
+   at the registry's accept batch under a wall cap, and one island CEM at
+   the tier's islands x population.  Every fused and seg launch of the
+   search steps is held bit for bit against its plain version as it
+   happens; each best equals its float64 re-scores; the fused entry is
+   timed on the decoded population and the seg entry on the climb's chunks;
+   the search steps' peak stays under ``TIER_PEAK_GIB``.
 
 The last stdout line is ``{"ok": true, "device": {...}}``; the line before
 it holds the kernels' JSON record (both entries, each with its narrow and
 its wide route), a ``train:`` line holds phases 5-8, a ``search_stage:``
 line phase 9, a ``pipeline:`` line phase 10, and ``wide_rows:``,
-``native_codec:`` and ``data_parallel:`` lines phases 11-13.
+``native_codec:`` and ``data_parallel:`` lines phases 11-13, a ``tier`` line
+phase 14.
 """
 
 from __future__ import annotations
@@ -155,6 +173,27 @@ DP_ISLANDS, DP_POPULATION, DP_ITERS = 8, 512, 2
 #: phase 13: a parameter element's update is compared where the two runs'
 #: summed gradients agree within this fraction of the one-process one
 DP_GRAD_RTOL = 1e-3
+#: phase 14: the registry's very-large tier at link width (n = 724) and its
+#: cuts, depth and counts only: fit epochs 20 -> 1 (then one timed chunk of
+#: ``steps_per_call`` steps per operand type), island CEM iterations 6 -> 2
+#: and exploit repeats 32 -> 4, the delta climb's wall budget 1800 -> 30 s,
+#: eval on one batch of 4 test graphs, and graphs per curriculum batch
+#: 8 -> 1 (650 graphs of about 5,600 edges; 8 take minutes on the host)
+TIER_NAME = "link"
+TIER_CORPUS_BATCH = 1
+#: parameters of the tier's model at link width (the JAX package's count)
+TIER_PARAMS = 95_704_984
+TIER_FIT_EPOCHS = 1
+TIER_PROFILE_STEPS = 3
+TIER_EVAL_GRAPHS = 4
+TIER_ISLAND_ITERS = 2
+TIER_EXPLOIT = 4
+TIER_CLIMB_S = 30.0
+#: candidates per call of the fused entry's plain version when a launch is
+#: held (about 2 GB of float64 and int64 intermediates at n = 724)
+TIER_HOLD_CANDIDATES = 16
+#: phase 14's search steps stay below this peak (GiB)
+TIER_PEAK_GIB = 20.0
 KERNELS = ("contingency_counts_fused", "contingency_counts_fused_wide", "contingency_counts",
            "contingency_counts_wide")
 #: Published H100 SXM peak HBM bytes/s.
@@ -677,6 +716,18 @@ def phase_train_search(torch, cfg, scorer, model) -> dict:
             "candidates_per_s": pop / search_s, "kernel_launches": launches}
 
 
+def device_time(torch, prof) -> tuple:
+    """Device kernels of a profiler window (user annotations, which span
+    kernels, left out): their total ms, their count, and (us, count) by name."""
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
+    by_name: dict = {}
+    for e in kernels:
+        us, count = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (us + e.time_range.elapsed_us(), count + 1)
+    return sum(us for us, _ in by_name.values()) / 1e3, len(kernels), by_name
+
+
 def phase_step_time(torch, cfg, trainer, state, train_c) -> dict:
     """Phase 8: the two loops timed in turns on the same 20-step cut
     (chunked, per-step, per-step, chunked), then device time and kernel
@@ -712,23 +763,17 @@ def phase_step_time(torch, cfg, trainer, state, train_c) -> dict:
         state, _ = trainer.chunk_step(state, labels_d, adj_d, block[2:], gen)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / PROFILE_STEPS
-    # device work only: user annotations (e.g. the optimizer step's range) span kernels
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
-               and not getattr(e, "is_user_annotation", False)]
-    if not kernels:
+    device_ms, events, by_name = device_time(torch, prof)
+    if not events:
         print("train step profile: the profiler recorded no device events (not measured)")
         return record
-    by_name: dict = {}
-    for e in kernels:
-        us, count = by_name.get(e.name, (0.0, 0))
-        by_name[e.name] = (us + e.time_range.elapsed_us(), count + 1)
-    device_ms = sum(us for us, _ in by_name.values()) / 1e3 / PROFILE_STEPS
+    device_ms /= PROFILE_STEPS
     host = sorted(prof.key_averages(), key=lambda a: -a.self_cpu_time_total)[:8]
     record.update({
         "profile_steps": PROFILE_STEPS,
         "profiled_wall_ms_per_step": wall_ms,
         "device_ms_per_step": device_ms,
-        "device_events_per_step": len(kernels) / PROFILE_STEPS,
+        "device_events_per_step": events / PROFILE_STEPS,
         "device_busy_share": device_ms / step_ms,
         "top_kernels": [
             {"name": name[:100], "ms_per_step": us / 1e3 / PROFILE_STEPS,
@@ -790,13 +835,14 @@ def phase_large_closure(torch) -> dict:
     return out
 
 
-def time_family_seg(torch, fam, final_adj: np.ndarray, clock_hz) -> dict:
+def time_family_seg(torch, fam, final_adj: np.ndarray, clock_hz, max_rows=None) -> dict:
     """The seg entry at the delta climb's shapes, each built by the climb's
     own ``refresh_families``: its first frontier (every single-parent family
     of the empty graph), a one-child refresh, and a refresh of every child
     of the climb's final graph (multi-parent families, up to ``max_parents``
-    parents); then a full ``DELTA_CHUNK`` of such families.  Each held
-    bit-equal to the plain version (tolerance 0), timed beside it, the
+    parents); then a full ``DELTA_CHUNK`` of such families.  ``max_rows``
+    keeps the first rows of each (the climb's own chunks at large n).  Each
+    held bit-equal to the plain version (tolerance 0), timed beside it, the
     ``torch.bincount`` yardstick and the bound."""
     from dags_vae_search_tpu_torch.ops import bic_kernel
     from dags_vae_search_tpu_torch.search.delta_hillclimb import refresh_families
@@ -813,7 +859,8 @@ def time_family_seg(torch, fam, final_adj: np.ndarray, clock_hz) -> dict:
                       np.resize(parents, (DELTA_CHUNK, parents.shape[1])))
     t = {}
     for key, (children, parents) in chunks.items():
-        children, parents = np.asarray(children, np.int32), np.asarray(parents, np.int32)
+        children = np.asarray(children, np.int32)[:max_rows]
+        parents = np.asarray(parents, np.int32)[:max_rows]
         seg = fam.cells(children, parents)[0]
         F, U = seg.shape
         got = bic_kernel.contingency_counts_kernel(w, seg, S)
@@ -837,24 +884,45 @@ def time_family_seg(torch, fam, final_adj: np.ndarray, clock_hz) -> dict:
     return t
 
 
-def hold_fused(torch, scorer, adj, label: str, clock_hz: float) -> dict:
+def fused_plain_parts(args, chunk=None):
+    """The fused entry's plain version on ``args``, ``chunk`` candidates a
+    call (all at once when None): a list of (first row, counts)."""
+    from dags_vae_search_tpu_torch.ops import bic_kernel
+
+    strides_t, rest = args[0], args[1:]
+    b, n = strides_t.shape[:2]
+    step = chunk or b
+    return [(i * n, bic_kernel.contingency_counts_fused_plain(strides_t[i:i + step], *rest))
+            for i in range(0, b, step)]
+
+
+def check_fused(torch, got, args, label: str, chunk=None) -> float:
+    """``got``, the fused entry's counts on ``args``, against its plain
+    version (tolerance 0); returns the largest difference."""
+    err = 0.0
+    for row, want in fused_plain_parts(args, chunk):
+        part = got[row:row + want.shape[0]]
+        check(torch.equal(part, want), f"{label}: fused kernel differs from its plain version "
+                                       f"from row {row}")
+        err = max(err, float((part - want).abs().max()))
+    return err
+
+
+def hold_fused(torch, scorer, adj, label: str, clock_hz: float, chunk=None) -> dict:
     """The fused entry on one input that a search-stage path sends it:
-    bit-equal to its plain version (tolerance 0), timed beside it, with its
-    bound from this input."""
+    bit-equal to its plain version (tolerance 0, run ``chunk`` candidates a
+    call), timed beside it, with its bound from this input."""
     from dags_vae_search_tpu_torch.ops import bic_kernel, bic_torch
 
     strides, _ = bic_torch.parent_config_strides(adj, scorer._cards)
     args = (strides.transpose(1, 2).contiguous(), scorer._codes_cm, scorer._weights,
             scorer.q_cap, scorer.r_max)
     got = bic_kernel.contingency_counts_fused(*args)
-    want = bic_kernel.contingency_counts_fused_plain(*args)
-    check(torch.equal(got, want), f"{label}: fused kernel differs from its plain version")
-    out = {"rows": adj.shape[0] * adj.shape[1], "err": float((got - want).abs().max()),
+    out = {"rows": adj.shape[0] * adj.shape[1], "err": check_fused(torch, got, args, label, chunk),
            "ms": cuda_ms(lambda: bic_kernel.contingency_counts_fused(*args), reps=10),
-           "plain_ms": cuda_ms(lambda: bic_kernel.contingency_counts_fused_plain(*args),
-                               reps=2, warmup=1),
+           "plain_ms": cuda_ms(lambda: fused_plain_parts(args, chunk), reps=2, warmup=1),
            **fused_bound(args[0], args[1], args[2], adj, scorer.q_cap * scorer.r_max, clock_hz)}
-    del got, want
+    del got
     if bic_kernel.route(bic_kernel.fused_warp_bytes(scorer.q_cap * scorer.r_max,
                                                     adj.shape[-1])) == "narrow":
         describe_rows(torch, (adj > 0).float(), label)
@@ -1570,17 +1638,329 @@ def phase_pipeline(torch, cfg, name: str, corpus, train_c, test_c, hc_best: floa
     return record
 
 
-def kernel_records(er: dict, decoded: dict, stage: dict, wide: dict,
+@contextlib.contextmanager
+def held_launches(torch):
+    """Inside the block, every launch of the fused and of the seg entry is
+    held against its plain version on the same inputs, bit for bit
+    (tolerance 0); the fused entry's plain version runs on
+    ``TIER_HOLD_CANDIDATES`` candidates at a time.  Yields a record of the
+    launches held and the seconds the comparisons took (kept out of the
+    rates).  An entry counts its launches on the function its module name
+    holds, so each checking wrapper carries the count while it is installed
+    and hands it back."""
+    from dags_vae_search_tpu_torch.ops import bic_kernel
+
+    fused, seg = bic_kernel.contingency_counts_fused, bic_kernel.contingency_counts_kernel
+    held = {"fused": 0, "seg": 0, "check_s": 0.0}
+
+    def fused_held(*args):
+        out = fused(*args)
+        t0 = time.perf_counter()
+        check_fused(torch, out, args, f"fused launch {held['fused']}", TIER_HOLD_CANDIDATES)
+        held["fused"] += 1
+        held["check_s"] += time.perf_counter() - t0
+        return out
+
+    def seg_held(w, cells, S):
+        out = seg(w, cells, S)
+        t0 = time.perf_counter()
+        check(torch.equal(out, bic_kernel.contingency_counts_plain(w, cells, S)),
+              f"seg launch {held['seg']} differs from the plain version")
+        held["seg"] += 1
+        held["check_s"] += time.perf_counter() - t0
+        return out
+
+    fused_held.launches, seg_held.launches = fused.launches, seg.launches
+    bic_kernel.contingency_counts_fused, bic_kernel.contingency_counts_kernel = fused_held, seg_held
+    try:
+        yield held
+    finally:
+        bic_kernel.contingency_counts_fused, bic_kernel.contingency_counts_kernel = fused, seg
+        fused.launches, seg.launches = fused_held.launches, seg_held.launches
+
+
+def tier_train(torch, cfg, train_c, test_c, matmul_dtype, log_dir) -> tuple:
+    """Phase 14's training under one operand type: the registry's
+    ``Trainer`` from the seed, ``TIER_FIT_EPOCHS`` epochs of its chunked fit
+    loop, then one timed chunk of ``steps_per_call`` steps on random batches
+    of the resident corpus (as the JAX bench times it), then
+    ``TIER_PROFILE_STEPS`` steps under ``utils.profiling.trace``.  The
+    model's loss on ``TIER_EVAL_GRAPHS`` test graphs in eval mode is held
+    against a CPU copy: rtol 1e-4 in float32 (sums in another order), 1e-3
+    with bfloat16 operands (a sum in another order can move an operand by
+    one bf16 step, 2^-8 relative)."""
+    from dags_vae_search_tpu_torch.models.pace_vae import PaceVAE, num_parameters
+    from dags_vae_search_tpu_torch.training.train import Trainer
+    from dags_vae_search_tpu_torch.utils.profiling import trace
+
+    dev = torch.device("cuda")
+    label = matmul_dtype or "float32"
+    kwargs = dict(cfg.model_kwargs(), matmul_dtype=matmul_dtype)
+    trainer = Trainer(PaceVAE(**kwargs).to(dev), cfg.train)
+    state = trainer.init_state(cfg.seed)
+    params = num_parameters(state.model)
+    check(cfg.name != TIER_NAME or params == TIER_PARAMS,
+          f"{cfg.name} model has {params} parameters, want {TIER_PARAMS:,}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    state, hist = trainer.fit(state, train_c, epochs=TIER_FIT_EPOCHS,
+                              log=lambda line: print(f"  fit ({label}):", line))
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+
+    k, b = cfg.train.steps_per_call, cfg.train.batch_size
+    labels_d, adj_d = trainer.corpus_to_device(train_c, dev, log=lambda line: None)
+    rng = np.random.default_rng(SEED)
+    block = torch.as_tensor(rng.integers(0, len(train_c), size=(k, b)), device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, losses = trainer.chunk_step(state, labels_d, adj_d, block, gen)
+    losses = losses.cpu().numpy().astype(np.float64)
+    chunk_s = time.perf_counter() - t0
+    step_ms = chunk_s / k * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    launches = read_launches()
+    check(np.all(np.isfinite(losses)) and all(np.isfinite(h["loss_per_graph"]) for h in hist),
+          f"{label}: non-finite training loss")
+    check(sum(launches.values()) == 0, f"{label}: a kernel launched in training: {launches}")
+
+    pblock = torch.as_tensor(rng.integers(0, len(train_c), size=(TIER_PROFILE_STEPS, b)),
+                             device=dev)
+    with trace(log_dir) as prof:
+        t0 = time.perf_counter()
+        state, _ = trainer.chunk_step(state, labels_d, adj_d, pblock, gen)
+        torch.cuda.synchronize()
+        profiled_ms = (time.perf_counter() - t0) * 1e3 / TIER_PROFILE_STEPS
+    device_ms, events, by_name = device_time(torch, prof)
+    device_ms /= TIER_PROFILE_STEPS
+    del labels_d, adj_d
+
+    # eval-mode loss on a few test graphs, card vs a CPU copy
+    model = state.model
+    idx = np.arange(TIER_EVAL_GRAPHS)
+    lab = torch.as_tensor(test_c.labels[idx])
+    adj = torch.as_tensor(test_c.dense_batch(idx))
+    model.eval()
+    with torch.no_grad():
+        card = torch.stack(model.loss(lab.to(dev), adj.to(dev))).cpu()
+        cpu = torch.stack(copy.deepcopy(model).cpu().loss(lab, adj))
+    model.train()
+    rtol = 1e-4 if matmul_dtype is None else 1e-3
+    check(torch.allclose(card, cpu, rtol=rtol, atol=1e-5),
+          f"{label}: card loss {card.tolist()} vs CPU {cpu.tolist()} (rtol {rtol})")
+    out = {
+        "matmul_dtype": label, "params": params, "fit_epochs": len(hist),
+        "fit_s": fit_s, "fit_history": hist, "chunk_steps": k, "batch": b,
+        "chunk_s": chunk_s, "step_ms": step_ms, "graphs_per_s": k * b / chunk_s,
+        "chunk_losses": losses.tolist(),
+        "peak_mem_gib": peak, "profile_steps": TIER_PROFILE_STEPS,
+        "profiled_wall_ms_per_step": profiled_ms,
+        "loss_card_vs_cpu": {"card": card.tolist(), "cpu": cpu.tolist()},
+    }
+    if events:
+        out.update(device_ms_per_step=device_ms, device_events_per_step=events / TIER_PROFILE_STEPS,
+                   device_busy_share=device_ms / step_ms,
+                   top_kernels=[{"name": name[:100], "ms_per_step": us / 1e3 / TIER_PROFILE_STEPS,
+                                 "per_step": count / TIER_PROFILE_STEPS}
+                                for name, (us, count) in sorted(by_name.items(),
+                                                                key=lambda kv: -kv[1][0])[:6]])
+    else:
+        out["device_busy_share"] = "not measured: the profiler recorded no device events"
+    busy = f"{100 * out['device_busy_share']:.1f}%" if events else out["device_busy_share"]
+    print(f"link train ({label}): step {step_ms:.3f} ms over a chunk of {k} x {b} graphs, "
+          f"device busy {busy}, peak {peak:.3f} GiB, total losses of the chunk's steps "
+          f"{losses[:, 0].tolist()}, card vs CPU loss {card.tolist()} / {cpu.tolist()}")
+    return state, out
+
+
+def phase_tier(torch, cfg, clock_hz) -> dict:
+    """Phase 14: the registry's very-large tier end to end at its widths;
+    checks in the module docstring."""
+    from dags_vae_search_tpu_torch import native
+    from dags_vae_search_tpu_torch.experiments.runner import ExperimentRunner
+    from dags_vae_search_tpu_torch.scoring.family_batch import FamilyBatchScorer
+    from dags_vae_search_tpu_torch.search import islands
+    from dags_vae_search_tpu_torch.search.delta_hillclimb import delta_hill_climb
+    from dags_vae_search_tpu_torch.search.latent import _relabel_and_check, decode_and_score
+    from dags_vae_search_tpu_torch.training import checkpoint, data
+    from dags_vae_search_tpu_torch.training.eval import evaluate_corpus
+
+    cuts = {"corpus_batch": [cfg.corpus.batch_size, TIER_CORPUS_BATCH],
+            "fit_epochs": [cfg.train.epochs, TIER_FIT_EPOCHS],
+            "island_iters": [cfg.search.island_iters, TIER_ISLAND_ITERS],
+            "exploit_repeats": [32, TIER_EXPLOIT],
+            "hill_climb_time_s": [cfg.search.hill_climb_time_s, TIER_CLIMB_S],
+            "eval_graphs": TIER_EVAL_GRAPHS}
+    cfg = dataclasses.replace(cfg, corpus=dataclasses.replace(cfg.corpus,
+                                                              batch_size=TIER_CORPUS_BATCH))
+    s, n = cfg.search, cfg.num_vertices
+    out: dict = {"experiment": cfg.name, "n": n, "card": nvidia_smi("name,power.limit")}
+    peaks = {}
+
+    def peak_of(name):
+        peaks[name] = torch.cuda.max_memory_allocated() / 2**30
+        torch.cuda.reset_peak_memory_stats()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # 1. corpus: sampler -> codec (npz parts, native decode) -> load_corpus
+        check(native.load() is not None, f"the native codec did not build: {native.build_log}")
+        runner = ExperimentRunner(cfg, data_dir=os.path.join(tmp, "runs"), device="cuda")
+        t0 = time.perf_counter()
+        runner.stage_generate()
+        gen_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        runner.stage_split()
+        split_s = time.perf_counter() - t0
+        train_c = data.load_corpus(runner.path("train"))
+        test_c = data.load_corpus(runner.path("test"))
+        check(train_c.packed_bits is not None and test_c.packed_bits is not None,
+              "the link corpus is not bit-packed")
+        sample = train_c.dense_batch(np.arange(min(len(train_c), 32)))
+        check(np.all(np.tril(sample) == 0) and sample.sum(axis=1).max() <= s.max_parents,
+              "corpus graphs are not forward DAGs within the in-degree cap")
+        check(all(sorted(row.tolist()) == list(range(n)) for row in train_c.labels[:32]),
+              "corpus labels are not permutations")
+        out["corpus"] = {"graphs": len(train_c) + len(test_c), "train": len(train_c),
+                         "test": len(test_c), "generate_s": gen_s, "split_s": split_s,
+                         "edges_per_graph": float(sample.sum()) / len(sample)}
+        print(f"link corpus: {json.dumps(out['corpus'])}")
+
+        # 2. training, float32 and bfloat16 operands
+        torch.cuda.reset_peak_memory_stats()
+        train = {}
+        state = None
+        for md in (None, "bfloat16"):
+            st, train[md or "float32"] = tier_train(torch, cfg, train_c, test_c, md,
+                                                     os.path.join(tmp, f"trace_{md}"))
+            if md is None:
+                state = st
+            else:
+                del st
+            torch.cuda.empty_cache()
+        out["train"] = train
+        peak_of("train")
+        model = state.model
+
+        # 3. checkpoint round trip, then eval on a few test graphs
+        want = {k: v.clone() for k, v in model.state_dict().items()}
+        t0 = time.perf_counter()
+        checkpoint.save_checkpoint(os.path.join(tmp, "ckpt"), TIER_FIT_EPOCHS,
+                                   {"params": model.state_dict()})
+        restored = checkpoint.restore_params(os.path.join(tmp, "ckpt"), TIER_FIT_EPOCHS,
+                                             {k: torch.zeros_like(v) for k, v in want.items()})
+        ckpt_s = time.perf_counter() - t0
+        check(all(torch.equal(restored[k], v) for k, v in want.items()), "restored checkpoint differs")
+        model.load_state_dict(restored)
+        del want, restored
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = evaluate_corpus(model, test_c, TIER_EVAL_GRAPHS, seed=cfg.seed + 1,
+                                  max_batches=1, use_isomorphism=False)
+        eval_s = time.perf_counter() - t0
+        check(metrics["valid_ratio_mode"] == 1.0, f"link valid_ratio_mode {metrics['valid_ratio_mode']}")
+        out["checkpoint_eval"] = {"checkpoint_s": ckpt_s, "eval_s": eval_s,
+                                  "eval_graphs": TIER_EVAL_GRAPHS, **metrics}
+        peak_of("checkpoint_eval")
+        print("link checkpoint + eval: " + json.dumps(out["checkpoint_eval"]))
+
+        # 4. search through the scorer (fused entry) and the delta climb (seg entry)
+        dataset = runner.scoring_dataset()
+        scorer = runner.scorer()
+        check(scorer.impl == "kernel" and scorer.q_cap * scorer.r_max == 512,
+              f"link scorer impl {scorer.impl}, S={scorer.q_cap * scorer.r_max}")
+        steps: dict = {}
+
+        def step(name, fn):
+            torch.cuda.synchronize()
+            reset_launches()
+            with held_launches(torch) as held:
+                t0 = time.perf_counter()
+                res = fn()
+                torch.cuda.synchronize()
+                seconds = time.perf_counter() - t0
+            steps[name] = {"seconds": seconds, "held": held, "launches": read_launches(),
+                           "seconds_without_checks": seconds - held["check_s"]}
+            return res
+
+        pop = s.islands * s.island_population
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        z = torch.randn((pop, model.latent_size), generator=gen, device="cuda")
+        scores, labels, adj = step("decode_and_score", lambda: decode_and_score(model, scorer, z, gen))
+        info = steps["decode_and_score"]
+        finite = torch.isfinite(scores)
+        check(info["launches"]["contingency_counts_fused"] == 1 == info["held"]["fused"],
+              f"decode_and_score launches {info['launches']}")
+        check(bool(finite.any()), "no decoded link DAG scored finite")
+        best = int(torch.argmax(scores))
+        relabeled, _ = _relabel_and_check(labels, adj)
+        info.update(population=pop, decodes_per_s=pop / info["seconds_without_checks"],
+                    finite_fraction=float(finite.float().mean()),
+                    mean_edges=float(adj.sum()) / pop,
+                    best_bic=float(scores[best]),
+                    best_bic_exact=check_exact(scorer, float(scores[best]),
+                                               relabeled[best].cpu().numpy()))
+        print("link decode_and_score: " + json.dumps(info))
+        peak_of("decode_and_score")
+        fused_t = hold_fused(torch, scorer, relabeled, "decoded link population", clock_hz,
+                             chunk=TIER_HOLD_CANDIDATES)
+        del scores, labels, adj, relabeled
+        peak_of("fused_timing")
+
+        fam = FamilyBatchScorer(dataset, max_parents=s.max_parents, q_cap=scorer.q_cap, device="cuda")
+        climb = step("delta_hill_climb", lambda: delta_hill_climb(
+            fam, n, max_iters=s.hill_climb_iters, chunk=DELTA_CHUNK,
+            time_budget_s=TIER_CLIMB_S, accept_batch=s.hill_climb_accept_batch))
+        info = steps["delta_hill_climb"]
+        check(info["launches"]["contingency_counts"] == info["held"]["seg"] > 0
+              and sum(info["launches"].values()) == info["launches"]["contingency_counts"],
+              f"delta climb launches {info['launches']}")
+        check(all(b >= a for a, b in zip(climb.history, climb.history[1:])), "climb history decreased")
+        info.update(moves=climb.iterations, converged=bool(climb.converged),
+                    moves_per_s=climb.iterations / info["seconds_without_checks"],
+                    family_evals=climb.num_evals,
+                    family_evals_per_s=climb.num_evals / info["seconds_without_checks"],
+                    edges=int(climb.best_adj.sum()), profile=climb.profile,
+                    empty_graph_bic=climb.history[0], best_bic=climb.best_score,
+                    best_bic_exact=check_exact(scorer, climb.best_score, climb.best_adj))
+        print("link delta climb: " + json.dumps(info))
+        peak_of("delta_hill_climb")
+
+        isl = step("island_cem", lambda: islands.island_cem_search(
+            model, scorer, seed=cfg.seed + 2, num_islands=s.islands,
+            population=s.island_population, iters=TIER_ISLAND_ITERS,
+            exploit_repeats=TIER_EXPLOIT, device="cuda"))
+        info = steps["island_cem"]
+        check(info["launches"]["contingency_counts_fused"] == TIER_ISLAND_ITERS + 1
+              == info["held"]["fused"], f"island CEM launches {info['launches']}")
+        check(all(b >= a for a, b in zip(isl.history, isl.history[1:])), "island history decreased")
+        info.update(evals=isl.num_evals, evals_per_s=isl.num_evals / info["seconds_without_checks"],
+                    best_bic=isl.best_score, best_bic_exact=check_best_exact(torch, scorer, isl, n))
+        print("link island CEM: " + json.dumps(info))
+        peak_of("island_cem")
+
+        seg_t = time_family_seg(torch, fam, climb.best_adj, clock_hz, max_rows=DELTA_CHUNK)
+        peak_of("seg_timing")
+    search_peak = max(peaks[k] for k in ("decode_and_score", "fused_timing", "delta_hill_climb",
+                                         "island_cem", "seg_timing"))
+    check(search_peak < TIER_PEAK_GIB, f"phase 14 search peak {search_peak:.2f} GiB")
+    out.update(search=steps, fused=fused_t, family_seg=seg_t, peak_mem_gib=peaks, cuts=cuts)
+    return out
+
+
+def kernel_records(er: dict, decoded: dict, stage: dict, wide: dict, tier: dict,
                    launches_by_path: dict) -> list:
     """The kernels' records, each route at its main path's inputs: the fused
     entry on the decoded population (the latent search's), the seg entry on
     the delta climb's first frontier, their wide routes on phase 11's dense
     climb chunk and delta climb's first frontier; the other inputs' times
-    beside them.  ``launches`` sums the main paths' runs, each read on its
-    own."""
+    beside them, phase 14's at link width among them.  ``launches`` sums
+    the main paths' runs, each read on its own."""
     family, fused_stage = stage["family_seg"], stage["fused_stage"]
     stage_err = {"fused": [f["err"] for f in fused_stage.values()],
-                 "seg": [f["err"] for f in family.values()]}
+                 "seg": [f["err"] for f in [*family.values(), *tier["family_seg"].values()]]}
 
     def record(name, key, plain_key, main, library_ms, extra):
         return {
@@ -1638,6 +2018,7 @@ def kernel_records(er: dict, decoded: dict, stage: dict, wide: dict,
             "small_span_ms": decoded["small_span_ms"], "small_span_ms_er": er["small_span_ms"],
             "stage_climb_chunk": fused_stage["climb_chunk"],
             "stage_island_population": fused_stage["island_population"],
+            "link_decoded_population": tier["fused"],
         }),
         record("contingency_counts", "seg", "seg_plain_ms", {
             "ms": first["ms"], "plain_ms": first["plain_ms"], "bound_ms": first["bound_ms"],
@@ -1652,6 +2033,7 @@ def kernel_records(er: dict, decoded: dict, stage: dict, wide: dict,
             "ms_decoded": decoded["seg_ms"], "plain_ms_decoded": decoded["seg_plain_ms"],
             "bound_ms_decoded": decoded["seg_bound_ms"], "library_ms_decoded": decoded["bincount_ms"],
             "library_ms_er": er["bincount_ms"],
+            "link_family_seg": tier["family_seg"],
         }),
     ] + wide_records
 
@@ -1732,8 +2114,14 @@ def main() -> int:
     parallel = phase_data_parallel(torch, cfg, train_c, dataset)
     parallel["seconds"] = time.perf_counter() - t_dp
     print("data_parallel (one card, no multi-card number):", json.dumps(parallel))
+    t_tier = time.perf_counter()
+    tier = phase_tier(torch, REGISTRY[TIER_NAME], clock_hz)
+    tier["seconds"] = time.perf_counter() - t_tier
+    print(f"tier ({nvidia_smi('name,power.limit')}):", json.dumps(tier))
+    launches_by_path.update({f"tier_{k}": v["launches"] for k, v in tier["search"].items()})
     print(f"total {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": kernel_records(er, decoded, stage, wide, launches_by_path)}))
+    print(json.dumps({"kernels": kernel_records(er, decoded, stage, wide, tier,
+                                                launches_by_path)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

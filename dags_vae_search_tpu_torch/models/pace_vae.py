@@ -150,13 +150,14 @@ class PaceVAE(nn.Module):
 
     def _edge_bias(self, z: torch.Tensor, n: int) -> torch.Tensor:
         """z -> per-pair edge-logit bias [B, n-1, n-1] (row i = child slot,
-        column j = parent slot, loss-pair indexing)."""
+        column j = parent slot, loss-pair indexing).  The factors' product
+        is float32 whatever ``matmul_dtype``: the JAX package does not round
+        its operands."""
         if self.edge_readout_rank > 0:
             r = self.edge_readout_rank
             u = self.edge_readout_u(z).reshape(-1, n - 1, r)
             v = self.edge_readout_v(z).reshape(-1, n - 1, r)
-            md = self.matmul_dtype
-            return (round_operand(u, md) @ round_operand(v, md).transpose(1, 2)) / (r**0.5)
+            return (u @ v.transpose(1, 2)) / (r**0.5)
         return self.edge_readout_fc(z).reshape(-1, n - 1, n - 1)
 
     def _edge_bias_row(self, z: torch.Tensor, n: int, i: int) -> torch.Tensor:
@@ -165,10 +166,7 @@ class PaceVAE(nn.Module):
             r = self.edge_readout_rank
             u_row = self.edge_readout_u(z).reshape(-1, n - 1, r)[:, i]
             v = self.edge_readout_v(z).reshape(-1, n - 1, r)
-            md = self.matmul_dtype
-            return (round_operand(v, md) @ round_operand(u_row, md)[..., None])[..., 0] / (
-                r**0.5
-            )
+            return (v @ u_row[..., None])[..., 0] / (r**0.5)
         return self.edge_readout_fc(z).reshape(-1, n - 1, n - 1)[:, i]
 
     # ------------------------------------------------------------- encoding

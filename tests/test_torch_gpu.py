@@ -424,3 +424,52 @@ def test_card_scorer_counts_wide_rows_as_the_cpu(cuda):
     assert torch.equal(c_card.cpu(), c_cpu) and torch.equal(q_card.cpu(), q_cpu)
     assert _launch_counts() == (*before[:3], before[3] + 1)
     np.testing.assert_allclose(card.score_exact(adj), cpu.score_exact(adj), rtol=1e-9)
+
+
+@pytest.fixture
+def link_dataset(tmp_path):
+    """The link experiment's simulated dataset, as its runner makes it."""
+    import dataclasses
+
+    from dags_vae_search_tpu_torch.experiments.registry import REGISTRY
+    from dags_vae_search_tpu_torch.experiments.runner import ExperimentRunner
+
+    cfg = dataclasses.replace(REGISTRY["link"], dataset_csv=None)
+    return ExperimentRunner(cfg, data_dir=str(tmp_path), device="cpu").scoring_dataset()
+
+
+def test_link_scorer_counts_equal_cpu(cuda, link_dataset):
+    n = link_dataset.num_variables
+    _, adj = sampler.sample_connected_dags(np.random.default_rng(4), 4, n, 2 * n, n,
+                                           max_in_degree=8)
+    card = BicScorer(link_dataset, max_parents=8, device=cuda)
+    cpu = BicScorer(link_dataset, max_parents=8, device="cpu", impl="plain")
+    assert card.impl == "kernel" and n == 724
+    before = bic_kernel.contingency_counts_fused.launches
+    c_card, q_card = card.counts(adj)
+    assert bic_kernel.contingency_counts_fused.launches == before + 1
+    c_cpu, q_cpu = cpu.counts(adj)
+    assert torch.equal(c_card.cpu(), c_cpu) and torch.equal(q_card.cpu(), q_cpu)
+    torch.testing.assert_close(card.score(adj).cpu(), cpu.score(adj), rtol=1e-5, atol=0.0)
+    np.testing.assert_allclose(card.score_exact(adj), cpu.score_exact(adj), rtol=1e-9)
+
+
+def test_link_family_chunk_on_card_equals_cpu(cuda, link_dataset):
+    from dags_vae_search_tpu_torch.scoring.family_batch import FamilyBatchScorer
+    from dags_vae_search_tpu_torch.search.delta_hillclimb import refresh_families
+
+    n = link_dataset.num_variables
+    card = FamilyBatchScorer(link_dataset, max_parents=8, q_cap=256, device=cuda)
+    cpu = FamilyBatchScorer(link_dataset, max_parents=8, q_cap=256, device="cpu")
+    children, parents, _ = refresh_families(np.zeros((n, n), bool), range(6), 8)
+    children, parents = np.asarray(children, np.int32), np.stack(parents)
+    seg_card, _ = card.cells(children, parents)
+    seg_cpu, _ = cpu.cells(children, parents)
+    assert torch.equal(seg_card.cpu(), seg_cpu)
+    S = card.q_cap * card.r_max
+    before = bic_kernel.contingency_counts_kernel.launches
+    got = bic_kernel.contingency_counts_kernel(card._weights, seg_card, S)
+    assert bic_kernel.contingency_counts_kernel.launches == before + 1
+    assert torch.equal(got.cpu(), bic_kernel.contingency_counts_plain(cpu._weights, seg_cpu, S))
+    torch.testing.assert_close(card.score(children, parents).cpu(), cpu.score(children, parents),
+                               rtol=1e-5, atol=0.0)
