@@ -108,14 +108,36 @@ order; any failure exits non-zero:
    search steps is held bit for bit against its plain version as it
    happens; each best equals its float64 re-scores; the fused entry is
    timed on the decoded population and the seg entry on the climb's chunks;
-   the search steps' peak stays under ``TIER_PEAK_GIB``.
+   the search steps' peak stays under ``TIER_PEAK_GIB``;
+15. the registry's small tier, readout-free models (embed 32, 8 heads, 3
+   layers, latent 32, no edge readout), cut in depth and counts only
+   (``SMALL_*``, phase 9's island and refine iterations): (a) asia through
+   the ``ExperimentRunner`` from ``generate`` (the full 220,000-graph
+   corpus) to ``roundtrip``, fitting one epoch on the first
+   ``SMALL_FIT_GRAPHS`` graphs of the train split; beside it one chunk of
+   ``steps_per_call`` steps timed with the device's busy share, and one
+   readout-free chunk on the card and on the CPU from the same seed; (b)
+   sachs with three-state variables (q_cap 4,096, S = 12,288 cells a row,
+   still the fused entry's narrow route), the structure search of a
+   ``variant="structure"`` runner (the family table, exact DP, the dense
+   climb with restarts by table gather), then the fused entry timed on a
+   table chunk and an exact-DP chunk on both routes; (c) synthetic_12 with
+   one label: generate, split, the same fit, the search stage with the
+   checkpoint (unconstrained decodes).  Every fused launch is held bit for
+   bit against its plain version as it happens; each family table equals
+   one built on the CPU (the ``-inf`` pattern identical, finite entries to
+   1e-5 relative); each exact optimum has the CPU's family count and equals
+   the CPU's optimum and its host re-score to 1e-9; every climb and latent
+   best lies at or below it and equals its own float64 re-score to 1e-5;
+   asia's reports are all present in both directories, none skipped; no
+   wide route launches on these paths.
 
 The last stdout line is ``{"ok": true, "device": {...}}``; the line before
 it holds the kernels' JSON record (both entries, each with its narrow and
 its wide route), a ``train:`` line holds phases 5-8, a ``search_stage:``
 line phase 9, a ``pipeline:`` line phase 10, and ``wide_rows:``,
 ``native_codec:`` and ``data_parallel:`` lines phases 11-13, a ``tier`` line
-phase 14.
+phase 14 and a ``small_tier`` line phase 15.
 """
 
 from __future__ import annotations
@@ -194,6 +216,23 @@ TIER_CLIMB_S = 30.0
 TIER_HOLD_CANDIDATES = 16
 #: phase 14's search steps stay below this peak (GiB)
 TIER_PEAK_GIB = 20.0
+#: phase 15: the registry's small tier (asia, sachs, synthetic_12) and its
+#: cuts, depth and counts only: one fit epoch on the first SMALL_FIT_GRAPHS
+#: graphs of the train split (10 chunks of 100 steps of 32; a full epoch of
+#: asia's 6,187 steps is past 3 minutes on the card, a step host-bound at
+#: about 30 ms) instead of 100 epochs on all of it, island CEM and refine
+#: iterations as phase 9 cuts them; sachs simulated with three-state
+#: variables (the reference's data are ternary; the registry simulates
+#: binary data)
+SMALL_FIT_GRAPHS = 32_000
+SMALL_SACHS_STATES = 3
+#: the registry's asia corpus (4,000 graphs x 55 curriculum batches) and its
+#: train split
+SMALL_ASIA_CORPUS, SMALL_ASIA_TRAIN = 220_000, 198_000
+#: parameters of the tier's readout-free models (the port's count)
+SMALL_PARAMS = {"asia": 284_556, "sachs": 303_759, "synthetic_12": 309_445}
+#: steps of the readout-free chunk held card against CPU
+SMALL_PARITY_STEPS = 3
 KERNELS = ("contingency_counts_fused", "contingency_counts_fused_wide", "contingency_counts",
            "contingency_counts_wide")
 #: Published H100 SXM peak HBM bytes/s.
@@ -1506,6 +1545,25 @@ def phase_native_codec() -> dict:
     return out
 
 
+@contextlib.contextmanager
+def kept_results(*targets):
+    """Inside the block, each ``(module, name)`` function keeps what it
+    returns in a list, by name (a class keeps its instances)."""
+    kept = {name: [] for _, name in targets}
+    saved = [(module, name, getattr(module, name)) for module, name in targets]
+    for module, name, real in saved:
+        def keeper(*args, _real=real, _name=name, **kwargs):
+            kept[_name].append(_real(*args, **kwargs))
+            return kept[_name][-1]
+
+        setattr(module, name, keeper)
+    try:
+        yield kept
+    finally:
+        for module, name, real in saved:
+            setattr(module, name, real)
+
+
 def phase_pipeline(torch, cfg, name: str, corpus, train_c, test_c, hc_best: float) -> dict:
     """Phase 10: the port's ``ExperimentRunner`` through every stage on the
     card, its CLI in a subprocess, the results page; checks in the module
@@ -1523,7 +1581,6 @@ def phase_pipeline(torch, cfg, name: str, corpus, train_c, test_c, hc_best: floa
     # the registry checkpoints every 5 epochs; the cut run ends on one
     cfg.train.checkpoint_every = TRAIN_EPOCHS
     stages: dict = {}
-    climbs: list = []
     with tempfile.TemporaryDirectory() as tmp:
         runs = os.path.join(tmp, "runs")
         runner = ExperimentRunner(cfg, data_dir=runs, device="cuda")
@@ -1555,17 +1612,9 @@ def phase_pipeline(torch, cfg, name: str, corpus, train_c, test_c, hc_best: floa
         run("predictor", runner.stage_predictor)
         run("gp", runner.stage_gp)
         # keep the structure the dense climb returns, for its host re-score
-        climb_with_restarts = hillclimb.climb_with_restarts
-
-        def kept(*args, **kwargs):
-            climbs.append(climb_with_restarts(*args, **kwargs))
-            return climbs[-1]
-
-        hillclimb.climb_with_restarts = kept
-        try:
+        with kept_results((hillclimb, "climb_with_restarts")) as kept:
             run("search", runner.stage_search)
-        finally:
-            hillclimb.climb_with_restarts = climb_with_restarts
+        climbs = kept["climb_with_restarts"]
         run("roundtrip", runner.stage_roundtrip)
 
         t0 = time.perf_counter()
@@ -1691,7 +1740,6 @@ def tier_train(torch, cfg, train_c, test_c, matmul_dtype, log_dir) -> tuple:
     one bf16 step, 2^-8 relative)."""
     from dags_vae_search_tpu_torch.models.pace_vae import PaceVAE, num_parameters
     from dags_vae_search_tpu_torch.training.train import Trainer
-    from dags_vae_search_tpu_torch.utils.profiling import trace
 
     dev = torch.device("cuda")
     label = matmul_dtype or "float32"
@@ -1710,33 +1758,12 @@ def tier_train(torch, cfg, train_c, test_c, matmul_dtype, log_dir) -> tuple:
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
 
-    k, b = cfg.train.steps_per_call, cfg.train.batch_size
-    labels_d, adj_d = trainer.corpus_to_device(train_c, dev, log=lambda line: None)
-    rng = np.random.default_rng(SEED)
-    block = torch.as_tensor(rng.integers(0, len(train_c), size=(k, b)), device=dev)
-    gen = torch.Generator(device=dev).manual_seed(SEED)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    state, losses = trainer.chunk_step(state, labels_d, adj_d, block, gen)
-    losses = losses.cpu().numpy().astype(np.float64)
-    chunk_s = time.perf_counter() - t0
-    step_ms = chunk_s / k * 1e3
-    peak = torch.cuda.max_memory_allocated() / 2**30
+    state, timed = time_chunk(torch, trainer, state, train_c, log_dir, TIER_PROFILE_STEPS)
     launches = read_launches()
+    losses = np.asarray(timed["chunk_losses"])
     check(np.all(np.isfinite(losses)) and all(np.isfinite(h["loss_per_graph"]) for h in hist),
           f"{label}: non-finite training loss")
     check(sum(launches.values()) == 0, f"{label}: a kernel launched in training: {launches}")
-
-    pblock = torch.as_tensor(rng.integers(0, len(train_c), size=(TIER_PROFILE_STEPS, b)),
-                             device=dev)
-    with trace(log_dir) as prof:
-        t0 = time.perf_counter()
-        state, _ = trainer.chunk_step(state, labels_d, adj_d, pblock, gen)
-        torch.cuda.synchronize()
-        profiled_ms = (time.perf_counter() - t0) * 1e3 / TIER_PROFILE_STEPS
-    device_ms, events, by_name = device_time(torch, prof)
-    device_ms /= TIER_PROFILE_STEPS
-    del labels_d, adj_d
 
     # eval-mode loss on a few test graphs, card vs a CPU copy
     model = state.model
@@ -1751,27 +1778,12 @@ def tier_train(torch, cfg, train_c, test_c, matmul_dtype, log_dir) -> tuple:
     rtol = 1e-4 if matmul_dtype is None else 1e-3
     check(torch.allclose(card, cpu, rtol=rtol, atol=1e-5),
           f"{label}: card loss {card.tolist()} vs CPU {cpu.tolist()} (rtol {rtol})")
-    out = {
-        "matmul_dtype": label, "params": params, "fit_epochs": len(hist),
-        "fit_s": fit_s, "fit_history": hist, "chunk_steps": k, "batch": b,
-        "chunk_s": chunk_s, "step_ms": step_ms, "graphs_per_s": k * b / chunk_s,
-        "chunk_losses": losses.tolist(),
-        "peak_mem_gib": peak, "profile_steps": TIER_PROFILE_STEPS,
-        "profiled_wall_ms_per_step": profiled_ms,
-        "loss_card_vs_cpu": {"card": card.tolist(), "cpu": cpu.tolist()},
-    }
-    if events:
-        out.update(device_ms_per_step=device_ms, device_events_per_step=events / TIER_PROFILE_STEPS,
-                   device_busy_share=device_ms / step_ms,
-                   top_kernels=[{"name": name[:100], "ms_per_step": us / 1e3 / TIER_PROFILE_STEPS,
-                                 "per_step": count / TIER_PROFILE_STEPS}
-                                for name, (us, count) in sorted(by_name.items(),
-                                                                key=lambda kv: -kv[1][0])[:6]])
-    else:
-        out["device_busy_share"] = "not measured: the profiler recorded no device events"
-    busy = f"{100 * out['device_busy_share']:.1f}%" if events else out["device_busy_share"]
-    print(f"link train ({label}): step {step_ms:.3f} ms over a chunk of {k} x {b} graphs, "
-          f"device busy {busy}, peak {peak:.3f} GiB, total losses of the chunk's steps "
+    out = {"matmul_dtype": label, "params": params, "fit_epochs": len(hist), "fit_s": fit_s,
+           "fit_history": hist, **timed,
+           "loss_card_vs_cpu": {"card": card.tolist(), "cpu": cpu.tolist()}}
+    print(f"link train ({label}): step {timed['step_ms']:.3f} ms over a chunk of "
+          f"{timed['chunk_steps']} x {timed['batch']} graphs, device busy {busy_text(timed)}, "
+          f"peak {timed['peak_mem_gib']:.3f} GiB, total losses of the chunk's steps "
           f"{losses[:, 0].tolist()}, card vs CPU loss {card.tolist()} / {cpu.tolist()}")
     return state, out
 
@@ -1950,16 +1962,392 @@ def phase_tier(torch, cfg, clock_hz) -> dict:
     return out
 
 
-def kernel_records(er: dict, decoded: dict, stage: dict, wide: dict, tier: dict,
+def time_chunk(torch, trainer, state, train_c, log_dir, profile_steps) -> tuple:
+    """One timed chunk of ``steps_per_call`` steps on random batches of the
+    resident corpus (as the JAX bench times it), then ``profile_steps``
+    steps under ``utils.profiling.trace``: step ms, graphs/s, the chunk's
+    losses, peak memory, and the device time, launches and busy share of a
+    step (the top kernels by device time)."""
+    from dags_vae_search_tpu_torch.utils.profiling import trace
+
+    dev = torch.device("cuda")
+    k, b = trainer.config.steps_per_call, trainer.config.batch_size
+    labels_d, adj_d = trainer.corpus_to_device(train_c, dev, log=lambda line: None)
+    rng = np.random.default_rng(SEED)
+    block = torch.as_tensor(rng.integers(0, len(train_c), size=(k, b)), device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, losses = trainer.chunk_step(state, labels_d, adj_d, block, gen)
+    losses = losses.cpu().numpy().astype(np.float64)
+    chunk_s = time.perf_counter() - t0
+    step_ms = chunk_s / k * 1e3
+    out = {"chunk_steps": k, "batch": b, "chunk_s": chunk_s, "step_ms": step_ms,
+           "graphs_per_s": k * b / chunk_s, "chunk_losses": losses.tolist(),
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "profile_steps": profile_steps}
+    pblock = torch.as_tensor(rng.integers(0, len(train_c), size=(profile_steps, b)), device=dev)
+    with trace(log_dir) as prof:
+        t0 = time.perf_counter()
+        state, _ = trainer.chunk_step(state, labels_d, adj_d, pblock, gen)
+        torch.cuda.synchronize()
+        out["profiled_wall_ms_per_step"] = (time.perf_counter() - t0) * 1e3 / profile_steps
+    device_ms, events, by_name = device_time(torch, prof)
+    if events:
+        device_ms /= profile_steps
+        out.update(device_ms_per_step=device_ms, device_events_per_step=events / profile_steps,
+                   device_busy_share=device_ms / step_ms,
+                   top_kernels=[{"name": name[:100], "ms_per_step": us / 1e3 / profile_steps,
+                                 "per_step": count / profile_steps}
+                                for name, (us, count) in sorted(by_name.items(),
+                                                                key=lambda kv: -kv[1][0])[:6]])
+    else:
+        out["device_busy_share"] = "not measured: the profiler recorded no device events"
+    return state, out
+
+
+def busy_text(record: dict) -> str:
+    share = record["device_busy_share"]
+    return share if isinstance(share, str) else f"{100 * share:.1f}%"
+
+
+def small_chunk_card_vs_cpu(torch, cfg, train_c) -> dict:
+    """Phase 15: the registry's readout-free model (dropout and noise off)
+    takes one chunk of ``SMALL_PARITY_STEPS`` steps on the card and on the
+    CPU from the same seed and batches; the chunk's losses and the
+    parameters after it to rtol 1e-4 / atol 1e-5, as phase 3b (the
+    attention key biases, whose gradient is rounding noise, left out)."""
+    from dags_vae_search_tpu_torch.models.pace_vae import make_model
+    from dags_vae_search_tpu_torch.training.train import Trainer
+
+    kwargs = dict(cfg.model_kwargs(), dropout=0.0, epsilon_scale=0.0)
+    check(not kwargs["edge_readout"], f"{cfg.name}: the model has an edge readout")
+    b, k = cfg.train.batch_size, SMALL_PARITY_STEPS
+    corpus = train_c.take(np.arange(k * b))
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        trainer = Trainer(make_model(SEED, dev, **kwargs), cfg.train)
+        state = trainer.init_state(SEED)
+        labels_d, adj_d = trainer.corpus_to_device(corpus, torch.device(dev), log=lambda line: None)
+        block = torch.arange(k * b, device=dev).reshape(k, b)
+        state, losses = trainer.chunk_step(state, labels_d, adj_d, block,
+                                           torch.Generator(device=dev).manual_seed(SEED))
+        runs[dev] = (losses.cpu(), {n: p.detach().cpu() for n, p in state.model.named_parameters()})
+    (l_card, p_card), (l_cpu, p_cpu) = runs["cuda"], runs["cpu"]
+    check(bool(torch.all(torch.isfinite(l_card))), f"{cfg.name}: non-finite chunk losses")
+    check(torch.allclose(l_card, l_cpu, rtol=1e-4, atol=1e-5),
+          f"{cfg.name} chunk losses card {l_card.tolist()} vs CPU {l_cpu.tolist()}")
+    worst = 0.0
+    for name, want in p_cpu.items():
+        if name.endswith("k_proj.bias"):
+            continue
+        check(torch.allclose(p_card[name], want, rtol=1e-4, atol=1e-5),
+              f"{cfg.name} chunk parameter {name}")
+        worst = max(worst, float((p_card[name] - want).abs().max()))
+    out = {"steps": k, "batch": b, "max_abs_loss_diff": float((l_card - l_cpu).abs().max()),
+           "max_abs_param_diff": worst, "losses_card": l_card.tolist()}
+    print(f"{cfg.name} readout-free chunk card vs CPU: " + json.dumps(out))
+    return out
+
+
+def small_step(torch, steps: dict, key: str, fn):
+    """One path of phase 15 on its own: launches reset before it and read
+    after it, every fused and seg launch held bit for bit against its plain
+    version as it happens (the comparisons' seconds kept out), peak memory.
+    No wide route may launch."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    with held_launches(torch) as held:
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    launches = read_launches()
+    check(launches["contingency_counts_fused"] == held["fused"]
+          and launches["contingency_counts"] == held["seg"]
+          and launches["contingency_counts_fused_wide"] == launches["contingency_counts_wide"] == 0,
+          f"{key}: launches {launches}, held {held}")
+    steps[key] = {"seconds": seconds, "seconds_without_checks": seconds - held["check_s"],
+                  "held": held, "launches": launches,
+                  "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+    return res
+
+
+def check_table(torch, table, dataset, max_parents: int, label: str) -> dict:
+    """The card's family table against one built on the CPU from the same
+    data: the ``-inf`` pattern identical, finite entries to 1e-5 relative
+    (float32 entropies summed in another order)."""
+    from dags_vae_search_tpu_torch.scoring.family_table import FamilyTableScorer
+
+    check(table.device.type == "cuda", f"{label}: the family table is on {table.device}")
+    got = table._table_t.cpu().numpy()
+    want = FamilyTableScorer(dataset, max_parents=max_parents, device="cpu")._table_t.numpy()
+    check(np.array_equal(np.isneginf(got), np.isneginf(want)), f"{label}: -inf patterns differ")
+    finite = np.isfinite(want)
+    rel = np.abs(got[finite] - want[finite]) / np.abs(want[finite])
+    check(finite.any() and np.all(np.isfinite(got[finite])) and float(rel.max()) <= 1e-5,
+          f"{label}: family table entries differ from the CPU's by {float(rel.max())} relative")
+    return {"shape": list(got.shape[::-1]), "infeasible": int((~finite).sum()),
+            "max_rel_diff": float(rel.max())}
+
+
+def check_small_search(torch, runner, report: dict, kept: dict, label: str) -> dict:
+    """Phase 15's checks of one ``stage_search`` report: the family table
+    and the exact optimum against the CPU's; every climb and latent best at
+    or below the optimum and equal to its own float64 re-score."""
+    from dags_vae_search_tpu_torch.scoring.bic import BicScorer
+    from dags_vae_search_tpu_torch.search import exact
+
+    ds, cfg = runner.scoring_dataset(), runner.config.search
+    n = ds.num_variables
+    check(len(kept["FamilyTableScorer"]) == len(kept["exact_search"]) == 1
+          and len(kept["climb_with_restarts"]) == 1, f"{label}: {len(kept['exact_search'])} DPs")
+    out = {"table": check_table(torch, kept["FamilyTableScorer"][0], ds, cfg.max_parents, label)}
+
+    # the exact optimum: the CPU's DP, float64 re-scores on the card and on the host
+    opt, card = kept["exact_search"][0], runner.scorer()
+    cpu = BicScorer(ds, max_parents=cfg.max_parents, device="cpu")
+    t0 = time.perf_counter()
+    want = exact.exact_search(cpu, n, max_parents=min(cfg.max_parents or 4, 6))
+    cpu_s = time.perf_counter() - t0
+    optimum = report["exact_optimum"]["best_bic"]
+    cpu_best = float(cpu.score_exact(want.best_adj[None])[0])
+    host = float(card.score_exact_sparse(opt.best_adj[None])[0])
+    check(report["exact_optimum"]["families"] == opt.num_families == want.num_families,
+          f"{label}: {opt.num_families} families against the CPU's {want.num_families}")
+    for name, value in (("the CPU's optimum", cpu_best), ("its host re-score", host)):
+        check(abs(optimum - value) <= 1e-9 * abs(value), f"{label}: optimum {optimum} vs {name} "
+                                                          f"{value}")
+    check(abs(opt.best_score - optimum) <= 1e-5 * abs(optimum),
+          f"{label}: DP value {opt.best_score} vs its float64 re-score {optimum}")
+
+    def at_most_optimum(value, what):
+        check(value is not None and np.isfinite(value)
+              and value <= optimum + 1e-9 * abs(optimum), f"{label}: {what} {value} above the "
+                                                          f"optimum {optimum}")
+
+    hc = kept["climb_with_restarts"][0]
+    hc_exact = report["hill_climb"]["best_bic"]
+    check(abs(hc.best_score - hc_exact) <= 1e-5 * abs(hc_exact),
+          f"{label}: climb best {hc.best_score} vs its float64 re-score {hc_exact}")
+    at_most_optimum(hc_exact, "climb best")
+    bests = {"hill_climb": hc_exact}
+    if "island_cem_polished" in report:
+        at_most_optimum(report["island_cem_polished"]["best_bic"], "polished climb best")
+        bests["island_cem_polished"] = report["island_cem_polished"]["best_bic"]
+    for key in ("island_cem", "latent_refined", "gp_ascent", "bo"):
+        entry = report.get(key)
+        if not isinstance(entry, dict):
+            continue
+        exact_value = entry.get("best_bic_exact")
+        at_most_optimum(exact_value, f"{key} best")
+        check(abs(entry["best_bic"] - exact_value) <= 1e-5 * abs(exact_value),
+              f"{label}: {key} best {entry['best_bic']} vs its float64 re-score {exact_value}")
+        bests[key] = exact_value
+    for key, entry in report.get("budget_comparison", {}).items():
+        if isinstance(entry, dict):
+            at_most_optimum(entry["best_bic_exact"], f"budget {key} best")
+            bests[f"budget_{key}"] = entry["best_bic_exact"]
+    out.update(exact_optimum={**report["exact_optimum"], "cpu_best_bic": cpu_best,
+                              "host_rescore": host, "dp_value_f32": opt.best_score,
+                              "cpu_seconds": cpu_s},
+               bests_exact=bests, hill_climb_impl=report["hill_climb"]["impl"],
+               restarts=report["hill_climb"]["restarts"])
+    check(out["hill_climb_impl"] == "dense", f"{label}: climb {out['hill_climb_impl']}")
+    return out
+
+
+def small_search(torch, runner, steps: dict, key: str) -> tuple:
+    """``runner.stage_search`` as one held path of phase 15, keeping the
+    family table, the exact DP's result and the dense climb it made."""
+    from dags_vae_search_tpu_torch.scoring import family_table
+    from dags_vae_search_tpu_torch.search import exact, hillclimb
+
+    with kept_results((family_table, "FamilyTableScorer"), (exact, "exact_search"),
+                      (hillclimb, "climb_with_restarts")) as kept:
+        small_step(torch, steps, key, runner.stage_search)
+    with open(os.path.join(runner.root, "report_search.json")) as fh:
+        return json.load(fh), kept
+
+
+def time_fused_routes(torch, scorer, adj, label: str, clock_hz: float) -> dict:
+    """The fused entry on one input of the small tier's paths (held and
+    timed by :func:`hold_fused`), and the wide route on the same input: its
+    counts equal, its time beside the narrow route's."""
+    from dags_vae_search_tpu_torch.ops import bic_kernel, bic_torch
+
+    out = hold_fused(torch, scorer, adj, label, clock_hz, chunk=TIER_HOLD_CANDIDATES)
+    strides, _ = bic_torch.parent_config_strides(adj, scorer._cards)
+    args = (strides.transpose(1, 2).contiguous(), scorer._codes_cm, scorer._weights,
+            scorer.q_cap, scorer.r_max)
+    S = scorer.q_cap * scorer.r_max
+    out["route"] = bic_kernel.route(bic_kernel.fused_warp_bytes(S, adj.shape[-1]))
+    out["S"] = S
+    check(torch.equal(bic_kernel.contingency_counts_fused_wide(*args),
+                      bic_kernel.contingency_counts_fused(*args)),
+          f"{label}: the wide route's counts differ from the narrow route's")
+    out["wide_ms"] = cuda_ms(lambda: bic_kernel.contingency_counts_fused_wide(*args), reps=10)
+    print(f"{label}: narrow {out['ms']:.4f} ms, wide {out['wide_ms']:.4f} ms, bound "
+          f"{out['bound_ms']:.4f} ms ({out['bound_by']})")
+    return out
+
+
+def sachs_fused_inputs(torch, n: int) -> dict:
+    """The fused entry's inputs on sachs's two small-tier paths: the family
+    table's first chunk (1,024 parent masks, every column carrying the
+    mask) and the exact DP's chunk for node 0 (its 848 parent sets)."""
+    from dags_vae_search_tpu_torch.search.exact import _family_masks
+
+    masks = np.arange(1024, dtype=np.int64)
+    bits = ((masks[:, None] >> np.arange(n)[None, :]) & 1).astype(np.float32)
+    table = np.repeat(bits[:, :, None], n, axis=2)
+    table[:, np.arange(n), np.arange(n)] = 0.0
+    family = _family_masks(n, 6, 0)
+    dp = np.zeros((family.shape[0], n, n), np.float32)
+    dp[:, :, 0] = ((family[:, None] >> np.arange(n)[None, :]) & 1).astype(np.float32)
+    return {"table_chunk": torch.as_tensor(table, device="cuda"),
+            "exact_chunk": torch.as_tensor(dp, device="cuda")}
+
+
+def small_config(name: str):
+    """A copy of the registry's entry with phase 15's cuts (the shared
+    registry is never edited): island CEM and refine iterations as phase 9
+    cuts them; sachs simulated with three-state variables."""
+    from dags_vae_search_tpu_torch.experiments.registry import REGISTRY
+
+    cfg = copy.deepcopy(REGISTRY[name])
+    cfg.search.island_iters, cfg.search.refine_iters = ISLAND_ITERS, REFINE_ITERS
+    if name == "sachs":
+        cfg.dataset_csv, cfg.simulate_max_card = None, SMALL_SACHS_STATES
+    return cfg
+
+
+def cut_fit(runner) -> None:
+    """The runner's train stage fits on the first ``SMALL_FIT_GRAPHS``
+    graphs of its train split (``SMALL_FIT_GRAPHS / batch`` steps)."""
+    load = runner._load_corpus
+    runner._load_corpus = lambda split: (load(split).take(np.arange(SMALL_FIT_GRAPHS))
+                                         if split == "train" else load(split))
+
+
+def phase_small_tier(torch, clock_hz) -> dict:
+    """Phase 15: the registry's small tier; checks in the module docstring."""
+    from dags_vae_search_tpu_torch.experiments.runner import ExperimentRunner
+    from dags_vae_search_tpu_torch.models.pace_vae import PaceVAE, num_parameters
+    from dags_vae_search_tpu_torch.training import data
+    from dags_vae_search_tpu_torch.training.train import Trainer
+
+    out: dict = {"card": nvidia_smi("name,power.limit"),
+                 "cuts": {"fit_graphs": SMALL_FIT_GRAPHS, "island_iters": [30, ISLAND_ITERS],
+                          "refine_iters": [15, REFINE_ITERS], "sachs_states": SMALL_SACHS_STATES}}
+    steps: dict = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        runs = os.path.join(tmp, "runs")
+        # (a) asia from generate to roundtrip
+        cfg = small_config("asia")
+        runner = ExperimentRunner(cfg, data_dir=runs, device="cuda")
+        check(num_parameters(runner.model) == SMALL_PARAMS["asia"],
+              f"asia model has {num_parameters(runner.model)} parameters")
+        small_step(torch, steps, "asia_generate", runner.stage_generate)
+        small_step(torch, steps, "asia_split", runner.stage_split)
+        train_c = data.load_corpus(runner.path("train"))
+        check(len(train_c) == SMALL_ASIA_TRAIN and train_c.packed_bits is None,
+              f"asia train split {len(train_c)} graphs")
+        out["asia_chunk_card_vs_cpu"] = small_chunk_card_vs_cpu(torch, cfg, train_c)
+        trainer = Trainer(PaceVAE(**cfg.model_kwargs()).to("cuda"), cfg.train)
+        torch.cuda.reset_peak_memory_stats()
+        _, chunk = time_chunk(torch, trainer, trainer.init_state(cfg.seed), train_c,
+                              os.path.join(tmp, "trace_asia"), TIER_PROFILE_STEPS)
+        chunk["epoch_steps"] = len(train_c) // cfg.train.batch_size
+        chunk["projected_epoch_s"] = chunk["epoch_steps"] * chunk["step_ms"] / 1e3
+        out["asia_chunk"] = chunk
+        print(f"asia train chunk: step {chunk['step_ms']:.3f} ms over {chunk['chunk_steps']} x "
+              f"{chunk['batch']} graphs, device busy {busy_text(chunk)}, a full epoch of "
+              f"{chunk['epoch_steps']} steps would take {chunk['projected_epoch_s']:.1f} s")
+        del trainer, train_c
+        cut_fit(runner)
+        small_step(torch, steps, "asia_train", lambda: runner.stage_train(epochs=1))
+        small_step(torch, steps, "asia_eval", lambda: runner.stage_eval(use_isomorphism=False))
+        small_step(torch, steps, "asia_predictor", runner.stage_predictor)
+        small_step(torch, steps, "asia_gp", runner.stage_gp)
+        report, kept = small_search(torch, runner, steps, "asia_search")
+        out["asia"] = check_small_search(torch, runner, report, kept, "asia")
+        small_step(torch, steps, "asia_roundtrip", runner.stage_roundtrip)
+        reports = {}
+        for stage in PIPELINE_STAGES:
+            for root in (runner.root, runner.reports_root):
+                check(os.path.isfile(os.path.join(root, f"report_{stage}.json")),
+                      f"missing {root}/report_{stage}.json")
+            with open(os.path.join(runner.root, f"report_{stage}.json")) as fh:
+                reports[stage] = json.load(fh)
+        check(not _skipped(reports), f"asia: skipped report entries {_skipped(reports)}")
+        final = reports["train"]["final"]
+        check(all(np.isfinite(final[k]) for k in ("loss_per_graph", "recon_per_graph",
+                                                   "kld_per_graph")), f"asia losses {final}")
+        (fit,) = reports["train"]["history"]
+        check(abs(fit["graphs_per_second"] * fit["epoch_seconds"] - SMALL_FIT_GRAPHS) < 1.0,
+              f"asia fit on {fit['graphs_per_second'] * fit['epoch_seconds']:.1f} graphs")
+        out["asia"].update(
+            rows=reports["generate"]["rows"], train_rows=reports["split"]["train_rows"],
+            fit=final, eval={k: v for k, v in reports["eval"].items()
+                             if k not in ("stage", "time", "device")},
+            gp={k: reports["gp"][k] for k in ("model", "train_points", "mae", "mape")},
+            roundtrip={k: reports["roundtrip"][k] for k in ("true_bic", "relative_error",
+                                                             "decode_valid")})
+        check(out["asia"]["rows"] == SMALL_ASIA_CORPUS, f"asia corpus {out['asia']['rows']} graphs")
+        print(f"asia: valid_ratio_mode {reports['eval']['valid_ratio_mode']}, exact optimum "
+              f"{out['asia']['exact_optimum']['best_bic']:.4f}, bests {out['asia']['bests_exact']}")
+
+        # (b) sachs with three states: the structure search, then the routes timed
+        cfg = small_config("sachs")
+        runner = ExperimentRunner(cfg, data_dir=runs, variant="structure", device="cuda")
+        scorer = runner.scorer()
+        check((scorer.q_cap, scorer.r_max, scorer.impl) == (4096, 3, "kernel"),
+              f"sachs scorer q_cap {scorer.q_cap}, r_max {scorer.r_max}, {scorer.impl}")
+        report, kept = small_search(torch, runner, steps, "sachs_search")
+        check(report["island_cem"] == "skipped (no checkpoint)", "sachs ran the latent half")
+        out["sachs"] = check_small_search(torch, runner, report, kept, "sachs")
+        launches = steps["sachs_search"]["launches"]["contingency_counts_fused"]
+        # table 2 chunks, the DP one chunk per node, the float64 re-scores of
+        # the optimum, the climb and the ground truth
+        check(launches == 2 + 11 + 3, f"sachs search: {launches} fused launches")
+        out["sachs"]["fused"] = {
+            key: time_fused_routes(torch, scorer, adj, f"sachs {key}", clock_hz)
+            for key, adj in sachs_fused_inputs(torch, scorer.dataset.num_variables).items()}
+
+        # (c) synthetic_12 with one label: generate, split, fit, search
+        cfg = small_config("synthetic_12")
+        runner = ExperimentRunner(cfg, data_dir=runs, device="cuda")
+        check(runner.model.cardinality == 4, "synthetic_12 is not one-label")
+        small_step(torch, steps, "synthetic_12_generate", runner.stage_generate)
+        small_step(torch, steps, "synthetic_12_split", runner.stage_split)
+        cut_fit(runner)
+        small_step(torch, steps, "synthetic_12_train", lambda: runner.stage_train(epochs=1))
+        report, kept = small_search(torch, runner, steps, "synthetic_12_search")
+        check(not _skipped(report), f"synthetic_12: skipped {_skipped(report)}")
+        check(isinstance(report.get("island_cem"), dict), "synthetic_12 ran no island CEM")
+        out["synthetic_12"] = check_small_search(torch, runner, report, kept, "synthetic_12")
+    out["steps"] = steps
+    for key, info in steps.items():
+        print(f"small tier {key}: {info['seconds']:.3f} s ({info['seconds_without_checks']:.3f} s "
+              f"without the checks), fused {info['launches']['contingency_counts_fused']} "
+              f"(held {info['held']['fused']}), peak {info['peak_mem_gib']:.3f} GiB")
+    return out
+
+
+def kernel_records(er: dict, decoded: dict, stage: dict, wide: dict, tier: dict, small: dict,
                    launches_by_path: dict) -> list:
     """The kernels' records, each route at its main path's inputs: the fused
     entry on the decoded population (the latent search's), the seg entry on
     the delta climb's first frontier, their wide routes on phase 11's dense
     climb chunk and delta climb's first frontier; the other inputs' times
-    beside them, phase 14's at link width among them.  ``launches`` sums
+    beside them, phase 14's at link width and phase 15's at sachs with three
+    states (both routes) among them.  ``launches`` sums
     the main paths' runs, each read on its own."""
     family, fused_stage = stage["family_seg"], stage["fused_stage"]
-    stage_err = {"fused": [f["err"] for f in fused_stage.values()],
+    sachs = small["sachs"]["fused"]
+    stage_err = {"fused": [f["err"] for f in [*fused_stage.values(), *sachs.values()]],
                  "seg": [f["err"] for f in [*family.values(), *tier["family_seg"].values()]]}
 
     def record(name, key, plain_key, main, library_ms, extra):
@@ -1993,7 +2381,7 @@ def kernel_records(er: dict, decoded: dict, stage: dict, wide: dict, tier: dict,
             "bound_ms": chunk["bound_ms"], "bound_by": chunk["bound_by"],
             "inputs": f"dense climb chunk at barley width (R={chunk['rows']}, S=65536)",
             "bytes": chunk["bytes"], "int_ops": chunk["int_ops"],
-        }, None, {}),
+        }, None, {f"sachs_{key}_ms": sachs[key]["wide_ms"] for key in sachs}),
         wide_record("contingency_counts_wide", {
             "max_abs_err": max(f["err"] for f in wide["family_seg"].values()),
             "ms": wide_first["ms"], "plain_ms": wide_first["plain_ms"],
@@ -2019,6 +2407,8 @@ def kernel_records(er: dict, decoded: dict, stage: dict, wide: dict, tier: dict,
             "stage_climb_chunk": fused_stage["climb_chunk"],
             "stage_island_population": fused_stage["island_population"],
             "link_decoded_population": tier["fused"],
+            "sachs_table_chunk": sachs["table_chunk"],
+            "sachs_exact_chunk": sachs["exact_chunk"],
         }),
         record("contingency_counts", "seg", "seg_plain_ms", {
             "ms": first["ms"], "plain_ms": first["plain_ms"], "bound_ms": first["bound_ms"],
@@ -2119,8 +2509,13 @@ def main() -> int:
     tier["seconds"] = time.perf_counter() - t_tier
     print(f"tier ({nvidia_smi('name,power.limit')}):", json.dumps(tier))
     launches_by_path.update({f"tier_{k}": v["launches"] for k, v in tier["search"].items()})
+    t_small = time.perf_counter()
+    small = phase_small_tier(torch, clock_hz)
+    small["seconds"] = time.perf_counter() - t_small
+    print(f"small_tier ({nvidia_smi('name,power.limit')}):", json.dumps(small))
+    launches_by_path.update({f"small_{k}": v["launches"] for k, v in small["steps"].items()})
     print(f"total {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": kernel_records(er, decoded, stage, wide, tier,
+    print(json.dumps({"kernels": kernel_records(er, decoded, stage, wide, tier, small,
                                                 launches_by_path)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -16,7 +16,8 @@ initialising gloo and naming the device.
 
 :func:`spawn` runs a function on ``world_size`` new processes that meet
 through a ``file://`` store in a temporary directory, so no TCP port is
-chosen and concurrent runs never collide.
+chosen and concurrent runs never collide.  Its ranks run on the cards
+unless the caller passes ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -140,14 +141,14 @@ def _rank_main(fn, rank, world_size, store_dir, device, backend, args) -> None:
         dist.destroy_process_group()
 
 
-def spawn(fn: Callable, world_size: int, *args, device="cpu", backend: Optional[str] = None,
+def spawn(fn: Callable, world_size: int, *args, device="cuda", backend: Optional[str] = None,
           timeout: float = 600.0) -> List[Any]:
     """``fn(mesh, *args)`` on ``world_size`` new processes; returns the
     ranks' results in rank order.
 
-    ``device``: ``"cpu"``, ``"cuda"`` (rank r on ``cuda:r``) or one card
-    for every rank (``"cuda:0"``, with ``backend="gloo"``).  ``backend``
-    defaults to :func:`backend_for` the device.  ``fn`` and ``args`` must
+    ``device``: ``"cuda"`` (the default: rank r on ``cuda:r``), one card
+    for every rank (``"cuda:0"``, with ``backend="gloo"``) or ``"cpu"``.
+    ``backend`` defaults to :func:`backend_for` the device.  ``fn`` and ``args`` must
     pickle (a module-level function).  Raises when a rank fails or
     ``timeout`` seconds pass; every process has ended when it returns."""
     ctx = multiprocessing.get_context("spawn")

@@ -473,3 +473,51 @@ def test_link_family_chunk_on_card_equals_cpu(cuda, link_dataset):
     assert torch.equal(got.cpu(), bic_kernel.contingency_counts_plain(cpu._weights, seg_cpu, S))
     torch.testing.assert_close(card.score(children, parents).cpu(), cpu.score(children, parents),
                                rtol=1e-5, atol=0.0)
+
+
+@pytest.fixture
+def sachs_three_states():
+    """Sachs with three-state variables: at ``max_parents`` 8, q_cap 4,096
+    and S = 12,288 cells a row, still on the fused entry's narrow route."""
+    _, ds = make_synthetic_problem("sachs", num_cases=5000, max_card=3, seed=0)
+    return ds
+
+
+def test_sachs_three_state_family_table_on_card_equals_cpu(cuda, sachs_three_states):
+    from dags_vae_search_tpu_torch.scoring.family_table import FamilyTableScorer
+
+    ds = sachs_three_states
+    card_scorer = BicScorer(ds, max_parents=8, device=cuda)
+    assert (card_scorer.q_cap, card_scorer.r_max, ds.num_variables) == (4096, 3, 11)
+    assert bic_kernel.route(bic_kernel.fused_warp_bytes(4096 * 3, 11)) == "narrow"
+    before = _launch_counts()
+    card = FamilyTableScorer(ds, max_parents=8, base_scorer=card_scorer)
+    # 2^11 masks in chunks of 1,024: two fused launches, no other route
+    assert _launch_counts() == (before[0], before[1], before[2] + 2, before[3])
+    cpu = FamilyTableScorer(ds, max_parents=8, device="cpu")
+    got, want = card._table_t.cpu().numpy(), cpu._table_t.numpy()
+    np.testing.assert_array_equal(np.isneginf(got), np.isneginf(want))
+    finite = np.isfinite(want)
+    assert finite.any() and (~finite).any()
+    np.testing.assert_allclose(got[finite], want[finite], rtol=1e-5, atol=0)
+    _, adj = sampler.sample_er_batch(np.random.default_rng(5), 64, 11, 14, 11, max_in_degree=4)
+    torch.testing.assert_close(card.score(adj).cpu(), cpu.score(adj), rtol=1e-5, atol=0.0)
+
+
+def test_sachs_three_state_exact_search_on_card_equals_cpu(cuda, sachs_three_states):
+    from dags_vae_search_tpu_torch.search.exact import exact_search
+
+    ds = sachs_three_states
+    card = BicScorer(ds, max_parents=8, device=cuda)
+    cpu = BicScorer(ds, max_parents=8, device="cpu")
+    before = _launch_counts()
+    got = exact_search(card, 11, max_parents=6)
+    # one chunk of 848 families per node
+    assert _launch_counts() == (before[0], before[1], before[2] + 11, before[3])
+    want = exact_search(cpu, 11, max_parents=6)
+    assert got.num_families == want.num_families == 9328
+    # float32 family scores summed in another order: 1e-5; float64 re-scores 1e-9
+    assert got.best_score == pytest.approx(want.best_score, rel=1e-5)
+    exact = float(card.score_exact(got.best_adj[None])[0])
+    assert exact == pytest.approx(float(cpu.score_exact(want.best_adj[None])[0]), rel=1e-9)
+    assert exact == pytest.approx(float(cpu.score_exact_sparse(got.best_adj[None])[0]), rel=1e-9)

@@ -132,7 +132,7 @@ def two_ranks(problem, jax_step):
     labels, adj, codes, cards = problem
     noisy = dict(TINY, epsilon_scale=0.5)
     return mesh_lib.spawn(_two_ranks, 2, jax_step[0], labels, adj, noisy, codes, cards,
-                          timeout=SPAWN_TIMEOUT)
+                          device="cpu", timeout=SPAWN_TIMEOUT)
 
 
 def _shift_invariant(name):
@@ -196,16 +196,22 @@ def test_shard_batch_and_replicate_tree(two_ranks):
 
 def test_world_of_one_is_bit_identical_to_no_mesh(problem):
     labels, adj, _, _ = problem
-    (result,) = mesh_lib.spawn(_one_rank, 1, labels, adj, timeout=SPAWN_TIMEOUT)
+    (result,) = mesh_lib.spawn(_one_rank, 1, labels, adj, device="cpu", timeout=SPAWN_TIMEOUT)
     for steps_per_call, ((l0, p0), (l1, p1)) in result.items():
         assert l0 == l1, steps_per_call
         assert all(torch.equal(p0[k], p1[k]) for k in p0), steps_per_call
 
 
 def test_dryrun_multichip_passes():
-    results = dryrun_multichip(2, timeout=SPAWN_TIMEOUT)
+    results = dryrun_multichip(2, timeout=SPAWN_TIMEOUT, device="cpu")
     assert len(results) == 2 and all(np.isfinite(r["loss_per_graph"]) for r in results)
     assert {r["best"] for r in results} == {7.0}
+
+
+def test_dryrun_multichip_asks_for_the_card_unless_told_cpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        dryrun_multichip(2)
 
 
 def test_mesh_helpers_without_a_process_group():
