@@ -130,14 +130,45 @@ order; any failure exits non-zero:
    the CPU's optimum and its host re-score to 1e-9; every climb and latent
    best lies at or below it and equals its own float64 re-score to 1e-5;
    asia's reports are all present in both directories, none skipped; no
-   wide route launches on these paths.
+   wide route launches on these paths;
+16. the registry's large tier at hepar2 (n = 70: embed 64, 4 layers,
+   latent 1,792, an edge readout of rank 64, 67,910,090 parameters), cut in
+   depth and counts only (``LARGE_*``, phase 9's island and refine
+   iterations): (a) the ``ExperimentRunner`` with the registry's binary
+   simulated data (S = 512) from ``generate`` (the full 47,872-graph
+   corpus, bit-packed on both splits: 9 bytes a row) to ``roundtrip``,
+   fitting one epoch checkpointed at its end; beside it one chunk of
+   ``steps_per_call`` steps timed with the device's busy share, and a
+   3-step chunk of ``LARGE_PARITY_BATCH`` graphs on the card and on the CPU
+   from the same seed (losses to rtol 1e-4 / atol 1e-5, gradients to 1e-4
+   norm-wise, parameters where the two gradients agree, as phase 13b,
+   every one within Adam's reach).  Checked: the corpus
+   graphs forward DAGs within the in-degree cap with permutation labels;
+   finite losses; the stage's checkpoint restores bit-equal; eval without
+   networkx at ``valid_ratio_mode`` 1; every report present in both
+   directories, none skipped; the search stage's delta climbs (accept
+   batch 8, 4 restarts, tie stop 2) each non-decreasing, the restart
+   history 1-5 entries none below the first; every best (climb, islands,
+   polish, refine, GP ascent, BO) equal to its float64 re-score to 1e-5,
+   the climb's also to the host's kernel-free re-score to 1e-9, the
+   ground truth's BIC beside them; the GP the exact one.  (b) hepar2 with
+   four-state variables (q_cap 4,096, S = 16,384 cells a row, both entries
+   still narrow): a ``variant="structure"`` runner's search (the delta
+   climbs with the registry's restarts; the latent half skipped), then
+   both routes of both entries timed, each bit-equal to its plain version,
+   beside its byte bound: the seg entry on the climb's first-frontier
+   chunk and on a full 4,096 chunk, the fused entry on a population of
+   ``LARGE_POPULATION`` DAGs with hepar2's 123 edges.  Every fused and
+   seg launch of both runners is held bit for bit against its plain
+   version as it happens; no wide route launches on these paths.
 
 The last stdout line is ``{"ok": true, "device": {...}}``; the line before
 it holds the kernels' JSON record (both entries, each with its narrow and
 its wide route), a ``train:`` line holds phases 5-8, a ``search_stage:``
 line phase 9, a ``pipeline:`` line phase 10, and ``wide_rows:``,
 ``native_codec:`` and ``data_parallel:`` lines phases 11-13, a ``tier`` line
-phase 14 and a ``small_tier`` line phase 15.
+phase 14, a ``small_tier`` line phase 15 and a ``large_tier`` line phase
+16.
 """
 
 from __future__ import annotations
@@ -233,6 +264,30 @@ SMALL_ASIA_CORPUS, SMALL_ASIA_TRAIN = 220_000, 198_000
 SMALL_PARAMS = {"asia": 284_556, "sachs": 303_759, "synthetic_12": 309_445}
 #: steps of the readout-free chunk held card against CPU
 SMALL_PARITY_STEPS = 3
+#: phase 16: the registry's large tier at hepar2 (n = 70: embed 64, 4
+#: layers, latent 1,792, edge readout of rank 64) and its cuts, depth and
+#: counts only: fit epochs 100 -> 1 (checkpointed at its end), island CEM
+#: and refine iterations as phase 9 cuts them, eval batches 20 -> 4; (b)
+#: hepar2 simulated with four-state variables (q_cap 4,096, S = 16,384),
+#: the structure search only
+LARGE_NAME = "hepar2"
+#: parameters of the tier's model at hepar2 (the JAX package's count)
+LARGE_PARAMS = 67_910_090
+#: the registry's hepar2 corpus (16 curriculum batches of 32 graphs per
+#: edge count, the constructive sampler) and its train split
+LARGE_CORPUS, LARGE_TRAIN = 47_872, 43_085
+LARGE_FIT_EPOCHS = 1
+LARGE_EVAL_BATCHES = 4
+#: graphs a step of the chunk held card against CPU (a 67.9 M-parameter
+#: model steps on the card's host too)
+LARGE_PARITY_BATCH = 8
+#: candidates per call of the fused entry's plain version when a launch is
+#: held (about 1 GB of intermediates at n = 70)
+LARGE_HOLD_CANDIDATES = 128
+LARGE_STATES = 4
+#: the fused entry's timed population at four states (R = 256 x 70 rows,
+#: 1.17 GB of counts)
+LARGE_POPULATION = 256
 KERNELS = ("contingency_counts_fused", "contingency_counts_fused_wide", "contingency_counts",
            "contingency_counts_wide")
 #: Published H100 SXM peak HBM bytes/s.
@@ -874,7 +929,8 @@ def phase_large_closure(torch) -> dict:
     return out
 
 
-def time_family_seg(torch, fam, final_adj: np.ndarray, clock_hz, max_rows=None) -> dict:
+def time_family_seg(torch, fam, final_adj: np.ndarray, clock_hz, max_rows=None,
+                    wide=False) -> dict:
     """The seg entry at the delta climb's shapes, each built by the climb's
     own ``refresh_families``: its first frontier (every single-parent family
     of the empty graph), a one-child refresh, and a refresh of every child
@@ -882,7 +938,8 @@ def time_family_seg(torch, fam, final_adj: np.ndarray, clock_hz, max_rows=None) 
     parents); then a full ``DELTA_CHUNK`` of such families.  ``max_rows``
     keeps the first rows of each (the climb's own chunks at large n).  Each
     held bit-equal to the plain version (tolerance 0), timed beside it, the
-    ``torch.bincount`` yardstick and the bound."""
+    ``torch.bincount`` yardstick and the bound; with ``wide``, the wide
+    kernel on the same cells too (bit-equal, timed)."""
     from dags_vae_search_tpu_torch.ops import bic_kernel
     from dags_vae_search_tpu_torch.search.delta_hillclimb import refresh_families
 
@@ -918,6 +975,12 @@ def time_family_seg(torch, fam, final_adj: np.ndarray, clock_hz, max_rows=None) 
             "cells_ms": cuda_ms(lambda: fam.cells(children, parents), reps=5),
             **seg_bound(F, U, S, clock_hz),
         }
+        if wide:
+            check(torch.equal(bic_kernel.contingency_counts_wide(w, seg, S), want),
+                  f"family {key} chunk: seg wide kernel differs from its plain version")
+            t[key]["route"] = bic_kernel.route(bic_kernel.seg_warp_bytes(S))
+            t[key]["wide_ms"] = cuda_ms(lambda: bic_kernel.contingency_counts_wide(w, seg, S),
+                                        reps=20)
         del flat, w_rep, seg
     print("seg entry at the delta climb's shapes: " + json.dumps(t))
     return t
@@ -1688,13 +1751,12 @@ def phase_pipeline(torch, cfg, name: str, corpus, train_c, test_c, hc_best: floa
 
 
 @contextlib.contextmanager
-def held_launches(torch):
+def held_launches(torch, chunk=TIER_HOLD_CANDIDATES):
     """Inside the block, every launch of the fused and of the seg entry is
     held against its plain version on the same inputs, bit for bit
-    (tolerance 0); the fused entry's plain version runs on
-    ``TIER_HOLD_CANDIDATES`` candidates at a time.  Yields a record of the
-    launches held and the seconds the comparisons took (kept out of the
-    rates).  An entry counts its launches on the function its module name
+    (tolerance 0); the fused entry's plain version runs on ``chunk``
+    candidates at a time.  Yields a record of the launches held and the
+    seconds the comparisons took (kept out of the rates).  An entry counts its launches on the function its module name
     holds, so each checking wrapper carries the count while it is installed
     and hands it back."""
     from dags_vae_search_tpu_torch.ops import bic_kernel
@@ -1705,7 +1767,7 @@ def held_launches(torch):
     def fused_held(*args):
         out = fused(*args)
         t0 = time.perf_counter()
-        check_fused(torch, out, args, f"fused launch {held['fused']}", TIER_HOLD_CANDIDATES)
+        check_fused(torch, out, args, f"fused launch {held['fused']}", chunk)
         held["fused"] += 1
         held["check_s"] += time.perf_counter() - t0
         return out
@@ -2011,54 +2073,99 @@ def busy_text(record: dict) -> str:
     return share if isinstance(share, str) else f"{100 * share:.1f}%"
 
 
-def small_chunk_card_vs_cpu(torch, cfg, train_c) -> dict:
-    """Phase 15: the registry's readout-free model (dropout and noise off)
-    takes one chunk of ``SMALL_PARITY_STEPS`` steps on the card and on the
-    CPU from the same seed and batches; the chunk's losses and the
-    parameters after it to rtol 1e-4 / atol 1e-5, as phase 3b (the
-    attention key biases, whose gradient is rounding noise, left out)."""
+def chunk_card_vs_cpu(torch, cfg, train_c, batch=None, every_element=False) -> dict:
+    """Phases 15-16: the registry's model (dropout and noise off) takes one
+    chunk of ``SMALL_PARITY_STEPS`` steps of ``batch`` graphs (the
+    registry's batch when None) on the card and on the CPU from the same
+    seed and batches.  The chunk's losses to rtol 1e-4 / atol 1e-5; each
+    step's gradients to 1e-4 norm-wise; the parameters after the chunk to
+    rtol 1e-4 / atol 1e-5 where the two runs' gradients agree within
+    ``DP_GRAD_RTOL`` of the CPU's at every step, as phase 13b holds them:
+    Adam's step is about lr x sign(g) whatever |g|, so an element whose
+    gradient is rounding noise (the attention key biases', zero in exact
+    arithmetic) moves a full step either way.  Every element stays within
+    Adam's reach of the CPU's, twice lr (1 - beta1) / sqrt(1 - beta2) a
+    step.  The elements left out are counted, by tensor.  With
+    ``every_element`` (phase 15) every parameter but the attention key
+    biases is held to rtol 1e-4 / atol 1e-5 too."""
     from dags_vae_search_tpu_torch.models.pace_vae import make_model
     from dags_vae_search_tpu_torch.training.train import Trainer
 
     kwargs = dict(cfg.model_kwargs(), dropout=0.0, epsilon_scale=0.0)
-    check(not kwargs["edge_readout"], f"{cfg.name}: the model has an edge readout")
-    b, k = cfg.train.batch_size, SMALL_PARITY_STEPS
+    train = dataclasses.replace(cfg.train, batch_size=batch or cfg.train.batch_size)
+    b, k = train.batch_size, SMALL_PARITY_STEPS
     corpus = train_c.take(np.arange(k * b))
     runs = {}
     for dev in ("cuda", "cpu"):
-        trainer = Trainer(make_model(SEED, dev, **kwargs), cfg.train)
+        trainer = Trainer(make_model(SEED, dev, **kwargs), train)
         state = trainer.init_state(SEED)
+        grads = []
+        apply = trainer.apply_gradients
+
+        def recorded(st, _apply=apply, _grads=grads):
+            _grads.append({n: p.grad.detach().to("cpu", copy=True)
+                           for n, p in st.model.named_parameters()})
+            return _apply(st)
+
+        trainer.apply_gradients = recorded
         labels_d, adj_d = trainer.corpus_to_device(corpus, torch.device(dev), log=lambda line: None)
         block = torch.arange(k * b, device=dev).reshape(k, b)
         state, losses = trainer.chunk_step(state, labels_d, adj_d, block,
                                            torch.Generator(device=dev).manual_seed(SEED))
-        runs[dev] = (losses.cpu(), {n: p.detach().cpu() for n, p in state.model.named_parameters()})
-    (l_card, p_card), (l_cpu, p_cpu) = runs["cuda"], runs["cpu"]
+        runs[dev] = (losses.cpu(), grads,
+                     {n: p.detach().to("cpu", copy=True) for n, p in state.model.named_parameters()})
+        del trainer, state
+    (l_card, g_card, p_card), (l_cpu, g_cpu, p_cpu) = runs["cuda"], runs["cpu"]
+    grad_rel = []
+    for card, cpu in zip(g_card, g_cpu):
+        diff = sum(float(((card[n] - cpu[n]).double() ** 2).sum()) for n in cpu) ** 0.5
+        grad_rel.append(diff / sum(float((g.double() ** 2).sum()) for g in cpu.values()) ** 0.5)
+    reach = 2 * k * train.learning_rate * 0.1 / 0.001**0.5
+    worst, left_out, total, outside, reached, failed = 0.0, {}, 0, 0, 0.0, []
+    for name, want in p_cpu.items():
+        agree = torch.ones_like(want, dtype=torch.bool)
+        for card, cpu in zip(g_card, g_cpu):
+            agree &= (card[name] - cpu[name]).abs() <= DP_GRAD_RTOL * cpu[name].abs()
+        got = p_card[name]
+        close = torch.isclose(got, want, rtol=1e-4, atol=1e-5)
+        if not close[agree].all() or (every_element and not name.endswith("k_proj.bias")
+                                      and not close.all()):
+            failed.append(name)
+        if agree.any():
+            worst = max(worst, float((got[agree] - want[agree]).abs().max()))
+        reached = max(reached, float((got - want).abs().max()))
+        outside += int((~close).sum())
+        if not agree.all():
+            left_out[name] = int((~agree).sum())
+        total += want.numel()
+    out = {"steps": k, "batch": b, "packed": train_c.packed_bits is not None,
+           "max_abs_loss_diff": float((l_card - l_cpu).abs().max()),
+           "grad_rel_diff_per_step": grad_rel, "max_abs_param_diff_where_grads_agree": worst,
+           "max_abs_param_diff": reached, "adam_reach": reach,
+           "params_left_out": sum(left_out.values()), "params": total,
+           "params_outside_tolerance": outside,
+           "left_out_by_tensor": dict(sorted(left_out.items(), key=lambda kv: -kv[1])[:6]),
+           "losses_card": l_card.tolist()}
+    print(f"{cfg.name} chunk card vs CPU: " + json.dumps(out))
     check(bool(torch.all(torch.isfinite(l_card))), f"{cfg.name}: non-finite chunk losses")
     check(torch.allclose(l_card, l_cpu, rtol=1e-4, atol=1e-5),
           f"{cfg.name} chunk losses card {l_card.tolist()} vs CPU {l_cpu.tolist()}")
-    worst = 0.0
-    for name, want in p_cpu.items():
-        if name.endswith("k_proj.bias"):
-            continue
-        check(torch.allclose(p_card[name], want, rtol=1e-4, atol=1e-5),
-              f"{cfg.name} chunk parameter {name}")
-        worst = max(worst, float((p_card[name] - want).abs().max()))
-    out = {"steps": k, "batch": b, "max_abs_loss_diff": float((l_card - l_cpu).abs().max()),
-           "max_abs_param_diff": worst, "losses_card": l_card.tolist()}
-    print(f"{cfg.name} readout-free chunk card vs CPU: " + json.dumps(out))
+    check(max(grad_rel) <= 1e-4, f"{cfg.name} chunk gradients card vs CPU {grad_rel} norm-wise")
+    check(reached <= reach, f"{cfg.name}: a parameter {reached} from the CPU's, past Adam's reach")
+    check(not failed, f"{cfg.name} chunk parameters outside rtol 1e-4 / atol 1e-5: {failed}")
     return out
 
 
-def small_step(torch, steps: dict, key: str, fn):
-    """One path of phase 15 on its own: launches reset before it and read
-    after it, every fused and seg launch held bit for bit against its plain
-    version as it happens (the comparisons' seconds kept out), peak memory.
-    No wide route may launch."""
+def held_step(torch, steps: dict, key: str, fn, chunk=TIER_HOLD_CANDIDATES):
+    """One path of phases 15-16 on its own: launches reset before it and
+    read after it, every fused and seg launch held bit for bit against its
+    plain version as it happens (the fused one ``chunk`` candidates a call;
+    the comparisons' seconds kept out), peak memory.  No wide route may
+    launch."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
-    with held_launches(torch) as held:
+    with held_launches(torch, chunk) as held:
         t0 = time.perf_counter()
         res = fn()
         torch.cuda.synchronize()
@@ -2166,7 +2273,7 @@ def small_search(torch, runner, steps: dict, key: str) -> tuple:
 
     with kept_results((family_table, "FamilyTableScorer"), (exact, "exact_search"),
                       (hillclimb, "climb_with_restarts")) as kept:
-        small_step(torch, steps, key, runner.stage_search)
+        held_step(torch, steps, key, runner.stage_search)
     with open(os.path.join(runner.root, "report_search.json")) as fh:
         return json.load(fh), kept
 
@@ -2249,12 +2356,13 @@ def phase_small_tier(torch, clock_hz) -> dict:
         runner = ExperimentRunner(cfg, data_dir=runs, device="cuda")
         check(num_parameters(runner.model) == SMALL_PARAMS["asia"],
               f"asia model has {num_parameters(runner.model)} parameters")
-        small_step(torch, steps, "asia_generate", runner.stage_generate)
-        small_step(torch, steps, "asia_split", runner.stage_split)
+        held_step(torch, steps, "asia_generate", runner.stage_generate)
+        held_step(torch, steps, "asia_split", runner.stage_split)
         train_c = data.load_corpus(runner.path("train"))
         check(len(train_c) == SMALL_ASIA_TRAIN and train_c.packed_bits is None,
               f"asia train split {len(train_c)} graphs")
-        out["asia_chunk_card_vs_cpu"] = small_chunk_card_vs_cpu(torch, cfg, train_c)
+        check(not cfg.model.edge_readout, "asia: the model has an edge readout")
+        out["asia_chunk_card_vs_cpu"] = chunk_card_vs_cpu(torch, cfg, train_c, every_element=True)
         trainer = Trainer(PaceVAE(**cfg.model_kwargs()).to("cuda"), cfg.train)
         torch.cuda.reset_peak_memory_stats()
         _, chunk = time_chunk(torch, trainer, trainer.init_state(cfg.seed), train_c,
@@ -2267,13 +2375,13 @@ def phase_small_tier(torch, clock_hz) -> dict:
               f"{chunk['epoch_steps']} steps would take {chunk['projected_epoch_s']:.1f} s")
         del trainer, train_c
         cut_fit(runner)
-        small_step(torch, steps, "asia_train", lambda: runner.stage_train(epochs=1))
-        small_step(torch, steps, "asia_eval", lambda: runner.stage_eval(use_isomorphism=False))
-        small_step(torch, steps, "asia_predictor", runner.stage_predictor)
-        small_step(torch, steps, "asia_gp", runner.stage_gp)
+        held_step(torch, steps, "asia_train", lambda: runner.stage_train(epochs=1))
+        held_step(torch, steps, "asia_eval", lambda: runner.stage_eval(use_isomorphism=False))
+        held_step(torch, steps, "asia_predictor", runner.stage_predictor)
+        held_step(torch, steps, "asia_gp", runner.stage_gp)
         report, kept = small_search(torch, runner, steps, "asia_search")
         out["asia"] = check_small_search(torch, runner, report, kept, "asia")
-        small_step(torch, steps, "asia_roundtrip", runner.stage_roundtrip)
+        held_step(torch, steps, "asia_roundtrip", runner.stage_roundtrip)
         reports = {}
         for stage in PIPELINE_STAGES:
             for root in (runner.root, runner.reports_root):
@@ -2320,10 +2428,10 @@ def phase_small_tier(torch, clock_hz) -> dict:
         cfg = small_config("synthetic_12")
         runner = ExperimentRunner(cfg, data_dir=runs, device="cuda")
         check(runner.model.cardinality == 4, "synthetic_12 is not one-label")
-        small_step(torch, steps, "synthetic_12_generate", runner.stage_generate)
-        small_step(torch, steps, "synthetic_12_split", runner.stage_split)
+        held_step(torch, steps, "synthetic_12_generate", runner.stage_generate)
+        held_step(torch, steps, "synthetic_12_split", runner.stage_split)
         cut_fit(runner)
-        small_step(torch, steps, "synthetic_12_train", lambda: runner.stage_train(epochs=1))
+        held_step(torch, steps, "synthetic_12_train", lambda: runner.stage_train(epochs=1))
         report, kept = small_search(torch, runner, steps, "synthetic_12_search")
         check(not _skipped(report), f"synthetic_12: skipped {_skipped(report)}")
         check(isinstance(report.get("island_cem"), dict), "synthetic_12 ran no island CEM")
@@ -2336,8 +2444,232 @@ def phase_small_tier(torch, clock_hz) -> dict:
     return out
 
 
+def large_config(**changes):
+    """A copy of the registry's hepar2 entry with phase 16's cuts (the
+    shared registry is never edited), and ``changes`` to its fields."""
+    from dags_vae_search_tpu_torch.experiments.registry import REGISTRY
+
+    cfg = copy.deepcopy(REGISTRY[LARGE_NAME])
+    cfg.search.island_iters, cfg.search.refine_iters = ISLAND_ITERS, REFINE_ITERS
+    cfg.train.checkpoint_every = LARGE_FIT_EPOCHS
+    for key, value in changes.items():
+        setattr(cfg, key, value)
+    return cfg
+
+
+def check_climbs(climbs: list, report: dict, label: str) -> dict:
+    """The delta climbs ``stage_search`` made (the restarts, then the
+    polish climb when it ran): each history non-decreasing, the restart
+    history one entry a climb, 1-5 of them, none below the first."""
+    hc = report["hill_climb"]
+    restarts = hc["restart_history"]
+    check(hc["impl"] == "delta", f"{label}: climb {hc['impl']}")
+    check(1 <= len(restarts) <= 5 and all(h >= restarts[0] for h in restarts),
+          f"{label}: restart history {restarts}")
+    for res in climbs:
+        check(all(b >= a for a, b in zip(res.history, res.history[1:])),
+              f"{label}: a climb's history decreased")
+    check(len(climbs) in (len(restarts), len(restarts) + 1),
+          f"{label}: {len(climbs)} climbs for {len(restarts)} restart entries")
+    return {"restart_history": restarts, "climbs": len(climbs),
+            "moves": [res.iterations for res in climbs],
+            "family_evals": [res.num_evals for res in climbs],
+            "profiles": [res.profile for res in climbs]}
+
+
+def phase_large_tier(torch, clock_hz) -> dict:
+    """Phase 16: the registry's large tier at hepar2; checks in the module
+    docstring."""
+    from dags_vae_search_tpu_torch.experiments.registry import REGISTRY
+    from dags_vae_search_tpu_torch.experiments.runner import ExperimentRunner
+    from dags_vae_search_tpu_torch.graphs import sampler
+    from dags_vae_search_tpu_torch.models.pace_vae import PaceVAE, num_parameters
+    from dags_vae_search_tpu_torch.scoring.family_batch import FamilyBatchScorer
+    from dags_vae_search_tpu_torch.search import delta_hillclimb, hillclimb
+    from dags_vae_search_tpu_torch.training import checkpoint, data
+    from dags_vae_search_tpu_torch.training.train import Trainer
+
+    base = REGISTRY[LARGE_NAME]
+    out: dict = {"card": nvidia_smi("name,power.limit"), "cuts": {
+        "fit_epochs": [base.train.epochs, LARGE_FIT_EPOCHS],
+        "checkpoint_every": [base.train.checkpoint_every, LARGE_FIT_EPOCHS],
+        "island_iters": [base.search.island_iters, ISLAND_ITERS],
+        "refine_iters": [base.search.refine_iters, REFINE_ITERS],
+        "eval_batches": [20, LARGE_EVAL_BATCHES]}}
+    steps: dict = {}
+
+    def step(key, fn):
+        return held_step(torch, steps, key, fn, chunk=LARGE_HOLD_CANDIDATES)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # (a) hepar2 from generate to roundtrip
+        cfg = large_config()
+        runner = ExperimentRunner(cfg, data_dir=os.path.join(tmp, "runs"), device="cuda")
+        n, s = cfg.num_vertices, cfg.search
+        params = num_parameters(runner.model)
+        check(params == LARGE_PARAMS, f"hepar2 model has {params} parameters, want {LARGE_PARAMS:,}")
+        step("large_generate", runner.stage_generate)
+        step("large_split", runner.stage_split)
+        train_c = data.load_corpus(runner.path("train"))
+        test_c = data.load_corpus(runner.path("test"))
+        check(train_c.packed_bits is not None and test_c.packed_bits is not None
+              and train_c.packed_bits.shape[1:] == (n, 9), "the hepar2 corpus is not bit-packed")
+        check(len(train_c) == LARGE_TRAIN and len(train_c) + len(test_c) == LARGE_CORPUS,
+              f"hepar2 corpus {len(train_c)} + {len(test_c)} graphs")
+        sample = train_c.dense_batch(np.arange(256))
+        check(np.all(np.tril(sample) == 0) and sample.sum(axis=1).max() <= s.max_parents,
+              "corpus graphs are not forward DAGs within the in-degree cap")
+        check(all(sorted(row.tolist()) == list(range(n)) for row in train_c.labels[:256]),
+              "corpus labels are not permutations")
+        out["corpus"] = {"graphs": len(train_c) + len(test_c), "train": len(train_c),
+                         "test": len(test_c), "packed_bytes_per_row": train_c.packed_bits.shape[2],
+                         "edges_per_graph": float(sample.sum()) / len(sample)}
+
+        out["chunk_card_vs_cpu"] = chunk_card_vs_cpu(torch, cfg, train_c, LARGE_PARITY_BATCH)
+        trainer = Trainer(PaceVAE(**cfg.model_kwargs()).to("cuda"), cfg.train)
+        torch.cuda.reset_peak_memory_stats()
+        _, chunk = time_chunk(torch, trainer, trainer.init_state(cfg.seed), train_c,
+                              os.path.join(tmp, "trace_hepar2"), TIER_PROFILE_STEPS)
+        chunk["epoch_steps"] = len(train_c) // cfg.train.batch_size
+        chunk["projected_epoch_s"] = chunk["epoch_steps"] * chunk["step_ms"] / 1e3
+        out["train_chunk"] = chunk
+        print(f"hepar2 train chunk: step {chunk['step_ms']:.3f} ms over {chunk['chunk_steps']} x "
+              f"{chunk['batch']} graphs, device busy {busy_text(chunk)}, peak "
+              f"{chunk['peak_mem_gib']:.3f} GiB; an epoch of {chunk['epoch_steps']} steps "
+              f"projects at {chunk['projected_epoch_s']:.1f} s")
+        del trainer
+        torch.cuda.empty_cache()
+
+        step("large_train", lambda: runner.stage_train(epochs=LARGE_FIT_EPOCHS))
+        # the checkpoint the stage wrote at its last epoch restores bit-equal
+        want = runner.model.state_dict()
+        t0 = time.perf_counter()
+        restored = checkpoint.restore_params(runner.path("checkpoints"), LARGE_FIT_EPOCHS,
+                                             {k: torch.zeros_like(v) for k, v in want.items()})
+        check(all(torch.equal(restored[k], v) for k, v in want.items()),
+              "the restored hepar2 checkpoint differs from the trained model")
+        out["checkpoint_restore_s"] = time.perf_counter() - t0
+        del want, restored
+        step("large_eval", lambda: runner.stage_eval(max_batches=LARGE_EVAL_BATCHES,
+                                                      use_isomorphism=False))
+        step("large_predictor", runner.stage_predictor)
+        step("large_gp", runner.stage_gp)
+        with kept_results((hillclimb, "climb_with_restarts"),
+                          (delta_hillclimb, "delta_hill_climb")) as kept:
+            step("large_search", runner.stage_search)
+        step("large_roundtrip", runner.stage_roundtrip)
+
+        reports = {}
+        for stage in PIPELINE_STAGES:
+            for root in (runner.root, runner.reports_root):
+                check(os.path.isfile(os.path.join(root, f"report_{stage}.json")),
+                      f"missing {root}/report_{stage}.json")
+            with open(os.path.join(runner.root, f"report_{stage}.json")) as fh:
+                reports[stage] = json.load(fh)
+        check(not _skipped(reports), f"hepar2: skipped report entries {_skipped(reports)}")
+        check(reports["generate"]["rows"] == LARGE_CORPUS, "hepar2 corpus rows")
+        (fit,) = reports["train"]["history"]
+        check(all(np.isfinite(fit[k]) for k in ("loss_per_graph", "recon_per_graph",
+                                                 "kld_per_graph")), f"hepar2 losses {fit}")
+        check(reports["eval"]["valid_ratio_mode"] == 1.0,
+              f"hepar2 valid_ratio_mode {reports['eval']['valid_ratio_mode']}")
+
+        # the search stage: every climb, every best against its re-scores
+        search = reports["search"]
+        (hc,) = kept["climb_with_restarts"]
+        climbs = kept["delta_hill_climb"]
+        out["climbs"] = check_climbs(climbs, search, "hepar2")
+        scorer = runner.scorer()
+        host = float(scorer.score_exact_sparse(hc.best_adj[None])[0])
+        hc_exact = search["hill_climb"]["best_bic"]
+        check(abs(hc.best_score - hc_exact) <= 1e-5 * abs(hc_exact),
+              f"climb best {hc.best_score} vs its float64 re-score {hc_exact}")
+        check(abs(host - hc_exact) <= 1e-9 * abs(host), f"climb best {hc_exact} vs host {host}")
+        bests = {"hill_climb": {"f32": hc.best_score, "exact": hc_exact, "host": host}}
+        check("island_cem_polished" in search, "hepar2: no polish climb")
+        polish = search["island_cem_polished"]["best_bic"]
+        check(len(climbs) == len(search["hill_climb"]["restart_history"]) + 1
+              and abs(climbs[-1].best_score - polish) <= 1e-5 * abs(polish),
+              f"polish climb best {climbs[-1].best_score} vs its float64 re-score {polish}")
+        bests["island_cem_polished"] = {"f32": climbs[-1].best_score, "exact": polish}
+        for key in ("island_cem", "latent_refined", "gp_ascent", "bo"):
+            entry = search[key]
+            exact_value = entry.get("best_bic_exact")
+            check(exact_value is not None and np.isfinite(exact_value)
+                  and abs(entry["best_bic"] - exact_value) <= 1e-5 * abs(exact_value),
+                  f"hepar2 {key} best {entry['best_bic']} vs its float64 re-score {exact_value}")
+            bests[key] = {"f32": entry["best_bic"], "exact": exact_value}
+        out["hepar2"] = {
+            "bests": bests, "ground_truth_bic": search["ground_truth_bic"],
+            "hill_climb": {k: search["hill_climb"][k] for k in
+                           ("iterations", "evals", "seconds", "evals_per_sec", "restarts")},
+            "island_cem_subspace": search["island_cem"]["subspace"],
+            "fit": fit, "eval": {k: v for k, v in reports["eval"].items()
+                                 if k not in ("stage", "time", "device")},
+            "predictor": {k: reports["predictor"][k] for k in ("rows", "finite_fraction")},
+            "gp": {k: reports["gp"][k] for k in ("model", "train_points", "mae", "mape")},
+            "roundtrip": {k: reports["roundtrip"][k] for k in ("true_bic", "gp_predicted_bic",
+                                                                "relative_error", "decode_valid")}}
+        check(out["hepar2"]["gp"]["model"] == "ExactGP", "the hepar2 GP is not the exact GP")
+        check(steps["large_search"]["launches"]["contingency_counts"] > 0
+              and steps["large_search"]["launches"]["contingency_counts_fused"] > 0,
+              f"hepar2 search launches {steps['large_search']['launches']}")
+        print(f"hepar2: bests {json.dumps(bests)}, ground truth {search['ground_truth_bic']:.4f}, "
+              f"restart history {out['climbs']['restart_history']}")
+
+        # (b) four-state data: the structure search, then both routes timed
+        cfg = large_config(simulate_max_card=LARGE_STATES, dataset_csv=None)
+        runner = ExperimentRunner(cfg, data_dir=os.path.join(tmp, "runs_four"),
+                                  variant="structure", device="cuda")
+        scorer = runner.scorer()
+        S = scorer.q_cap * scorer.r_max
+        check((scorer.q_cap, scorer.r_max, S) == (4096, LARGE_STATES, 16_384)
+              and scorer.impl == "kernel", f"four-state scorer q_cap {scorer.q_cap}, "
+                                           f"r_max {scorer.r_max}, {scorer.impl}")
+        with kept_results((hillclimb, "climb_with_restarts"),
+                          (delta_hillclimb, "delta_hill_climb")) as kept:
+            step("large_four_state_search", runner.stage_search)
+        with open(os.path.join(runner.root, "report_search.json")) as fh:
+            search = json.load(fh)
+        check(search["island_cem"] == "skipped (no checkpoint)", "four states: ran the latent half")
+        climbs = kept["delta_hill_climb"]
+        four = {"S": S, "unique_rows": scorer.num_unique_rows,
+                "climbs": check_climbs(climbs, search, "four states")}
+        (hc,) = kept["climb_with_restarts"]
+        hc_exact = search["hill_climb"]["best_bic"]
+        host = float(scorer.score_exact_sparse(hc.best_adj[None])[0])
+        check(abs(hc.best_score - hc_exact) <= 1e-5 * abs(hc_exact)
+              and abs(host - hc_exact) <= 1e-9 * abs(host),
+              f"four states: climb best {hc.best_score} / {hc_exact} / host {host}")
+        four.update(best_bic={"f32": hc.best_score, "exact": hc_exact, "host": host},
+                    ground_truth_bic=search["ground_truth_bic"])
+        fam = FamilyBatchScorer(runner.scoring_dataset(), max_parents=s.max_parents,
+                                q_cap=scorer.q_cap, device="cuda")
+        four["family_seg"] = time_family_seg(torch, fam, hc.best_adj, clock_hz,
+                                             max_rows=DELTA_CHUNK, wide=True)
+        _, pop = sampler.sample_connected_dags(np.random.default_rng(SEED), LARGE_POPULATION, n,
+                                               123, n, max_in_degree=s.max_parents)
+        four["fused"] = time_fused_routes(torch, scorer, torch.as_tensor(pop, device="cuda"),
+                                          "hepar2 four-state population", clock_hz)
+        out["four_states"] = four
+        print(f"hepar2 four states (S = {S}, {nvidia_smi('name,power.limit')}): "
+              f"seg narrow / wide first frontier {four['family_seg']['first']['ms']:.4f} / "
+              f"{four['family_seg']['first']['wide_ms']:.4f} ms (bound "
+              f"{four['family_seg']['first']['bound_ms']:.4f}), full chunk "
+              f"{four['family_seg']['full']['ms']:.4f} / {four['family_seg']['full']['wide_ms']:.4f}"
+              f" ms (bound {four['family_seg']['full']['bound_ms']:.4f}); fused narrow / wide "
+              f"{four['fused']['ms']:.4f} / {four['fused']['wide_ms']:.4f} ms (bound "
+              f"{four['fused']['bound_ms']:.4f})")
+    out["steps"] = steps
+    for key, info in steps.items():
+        print(f"large tier {key}: {info['seconds']:.3f} s ({info['seconds_without_checks']:.3f} s "
+              f"without the checks), fused {info['launches']['contingency_counts_fused']}, seg "
+              f"{info['launches']['contingency_counts']}, peak {info['peak_mem_gib']:.3f} GiB")
+    return out
+
+
 def kernel_records(er: dict, decoded: dict, stage: dict, wide: dict, tier: dict, small: dict,
-                   launches_by_path: dict) -> list:
+                   large: dict, launches_by_path: dict) -> list:
     """The kernels' records, each route at its main path's inputs: the fused
     entry on the decoded population (the latent search's), the seg entry on
     the delta climb's first frontier, their wide routes on phase 11's dense
@@ -2347,8 +2679,11 @@ def kernel_records(er: dict, decoded: dict, stage: dict, wide: dict, tier: dict,
     the main paths' runs, each read on its own."""
     family, fused_stage = stage["family_seg"], stage["fused_stage"]
     sachs = small["sachs"]["fused"]
-    stage_err = {"fused": [f["err"] for f in [*fused_stage.values(), *sachs.values()]],
-                 "seg": [f["err"] for f in [*family.values(), *tier["family_seg"].values()]]}
+    four = large["four_states"]
+    stage_err = {"fused": [f["err"] for f in [*fused_stage.values(), *sachs.values(),
+                                              four["fused"]]],
+                 "seg": [f["err"] for f in [*family.values(), *tier["family_seg"].values(),
+                                            *four["family_seg"].values()]]}
 
     def record(name, key, plain_key, main, library_ms, extra):
         return {
@@ -2381,7 +2716,8 @@ def kernel_records(er: dict, decoded: dict, stage: dict, wide: dict, tier: dict,
             "bound_ms": chunk["bound_ms"], "bound_by": chunk["bound_by"],
             "inputs": f"dense climb chunk at barley width (R={chunk['rows']}, S=65536)",
             "bytes": chunk["bytes"], "int_ops": chunk["int_ops"],
-        }, None, {f"sachs_{key}_ms": sachs[key]["wide_ms"] for key in sachs}),
+        }, None, {**{f"sachs_{key}_ms": sachs[key]["wide_ms"] for key in sachs},
+                  "hepar2_four_state_population_ms": four["fused"]["wide_ms"]}),
         wide_record("contingency_counts_wide", {
             "max_abs_err": max(f["err"] for f in wide["family_seg"].values()),
             "ms": wide_first["ms"], "plain_ms": wide_first["plain_ms"],
@@ -2393,6 +2729,7 @@ def kernel_records(er: dict, decoded: dict, stage: dict, wide: dict, tier: dict,
             "family_refresh": wide["family_seg"]["refresh"],
             "family_final_refresh": wide["family_seg"]["final"],
             "family_full_chunk": wide["family_seg"]["full"],
+            "hepar2_four_state_ms": {k: v["wide_ms"] for k, v in four["family_seg"].items()},
         }),
     ]
     return [
@@ -2409,6 +2746,7 @@ def kernel_records(er: dict, decoded: dict, stage: dict, wide: dict, tier: dict,
             "link_decoded_population": tier["fused"],
             "sachs_table_chunk": sachs["table_chunk"],
             "sachs_exact_chunk": sachs["exact_chunk"],
+            "hepar2_four_state_population": four["fused"],
         }),
         record("contingency_counts", "seg", "seg_plain_ms", {
             "ms": first["ms"], "plain_ms": first["plain_ms"], "bound_ms": first["bound_ms"],
@@ -2424,6 +2762,7 @@ def kernel_records(er: dict, decoded: dict, stage: dict, wide: dict, tier: dict,
             "bound_ms_decoded": decoded["seg_bound_ms"], "library_ms_decoded": decoded["bincount_ms"],
             "library_ms_er": er["bincount_ms"],
             "link_family_seg": tier["family_seg"],
+            "hepar2_four_state_family_seg": four["family_seg"],
         }),
     ] + wide_records
 
@@ -2514,8 +2853,13 @@ def main() -> int:
     small["seconds"] = time.perf_counter() - t_small
     print(f"small_tier ({nvidia_smi('name,power.limit')}):", json.dumps(small))
     launches_by_path.update({f"small_{k}": v["launches"] for k, v in small["steps"].items()})
+    t_large = time.perf_counter()
+    large = phase_large_tier(torch, clock_hz)
+    large["seconds"] = time.perf_counter() - t_large
+    print(f"large_tier ({nvidia_smi('name,power.limit')}):", json.dumps(large))
+    launches_by_path.update({k: v["launches"] for k, v in large["steps"].items()})
     print(f"total {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": kernel_records(er, decoded, stage, wide, tier, small,
+    print(json.dumps({"kernels": kernel_records(er, decoded, stage, wide, tier, small, large,
                                                 launches_by_path)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

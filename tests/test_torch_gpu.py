@@ -521,3 +521,65 @@ def test_sachs_three_state_exact_search_on_card_equals_cpu(cuda, sachs_three_sta
     exact = float(card.score_exact(got.best_adj[None])[0])
     assert exact == pytest.approx(float(cpu.score_exact(want.best_adj[None])[0]), rel=1e-9)
     assert exact == pytest.approx(float(cpu.score_exact_sparse(got.best_adj[None])[0]), rel=1e-9)
+
+
+@pytest.fixture
+def hepar2_four_states(tmp_path):
+    """hepar2's simulated data with four-state variables, as its runner
+    makes it: at ``max_parents`` 8, q_cap 4,096 and S = 16,384 cells a row,
+    where ``route()`` keeps both entries narrow."""
+    import copy
+
+    from dags_vae_search_tpu_torch.experiments.registry import REGISTRY
+    from dags_vae_search_tpu_torch.experiments.runner import ExperimentRunner
+
+    cfg = copy.deepcopy(REGISTRY["hepar2"])
+    cfg.dataset_csv, cfg.simulate_max_card = None, 4
+    return ExperimentRunner(cfg, data_dir=str(tmp_path), device="cpu").scoring_dataset()
+
+
+def test_hepar2_four_states_both_routes_of_both_entries_equal_plain(cuda, hepar2_four_states):
+    from dags_vae_search_tpu_torch.scoring.family_batch import FamilyBatchScorer
+    from dags_vae_search_tpu_torch.search.delta_hillclimb import refresh_families
+
+    ds = hepar2_four_states
+    n = ds.num_variables
+    card = BicScorer(ds, max_parents=8, device=cuda)
+    cpu = BicScorer(ds, max_parents=8, device="cpu", impl="plain")
+    S = card.q_cap * card.r_max
+    assert (n, card.q_cap, card.r_max, S) == (70, 4096, 4, 16_384)
+    assert bic_kernel.route(bic_kernel.fused_warp_bytes(S, n)) == "narrow"
+    assert bic_kernel.route(bic_kernel.seg_warp_bytes(S)) == "narrow"
+
+    # the fused entry: 4 candidates with hepar2's 123 edges
+    _, adj = sampler.sample_connected_dags(np.random.default_rng(6), 4, n, 123, n,
+                                           max_in_degree=8)
+    strides, _ = bic_torch.parent_config_strides(torch.as_tensor(adj), cpu._cards)
+    strides_t = strides.transpose(1, 2).contiguous()
+    want = bic_kernel.contingency_counts_fused_plain(strides_t, cpu._codes_cm, cpu._weights,
+                                                     card.q_cap, card.r_max)
+    args = (strides_t.to(cuda), card._codes_cm, card._weights, card.q_cap, card.r_max)
+    before = _launch_counts()
+    narrow = bic_kernel.contingency_counts_fused(*args)
+    wide = bic_kernel.contingency_counts_fused_wide(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(narrow.cpu(), want) and torch.equal(wide.cpu(), want)
+    assert _launch_counts() == (before[0], before[1], before[2] + 1, before[3] + 1)
+
+    # the seg entry: the first frontier's families of 6 children
+    card_fam = FamilyBatchScorer(ds, max_parents=8, q_cap=4096, device=cuda)
+    cpu_fam = FamilyBatchScorer(ds, max_parents=8, q_cap=4096, device="cpu")
+    children, parents, _ = refresh_families(np.zeros((n, n), bool), range(6), 8)
+    children, parents = np.asarray(children, np.int32), np.stack(parents)
+    seg_card, _ = card_fam.cells(children, parents)
+    seg_cpu, _ = cpu_fam.cells(children, parents)
+    assert torch.equal(seg_card.cpu(), seg_cpu)
+    want = bic_kernel.contingency_counts_plain(cpu_fam._weights, seg_cpu, S)
+    before = _launch_counts()
+    narrow = bic_kernel.contingency_counts_kernel(card_fam._weights, seg_card, S)
+    wide = bic_kernel.contingency_counts_wide(card_fam._weights, seg_card, S)
+    torch.cuda.synchronize()
+    assert torch.equal(narrow.cpu(), want) and torch.equal(wide.cpu(), want)
+    assert _launch_counts() == (before[0] + 1, before[1] + 1, before[2], before[3])
+    torch.testing.assert_close(card_fam.score(children, parents).cpu(),
+                               cpu_fam.score(children, parents), rtol=1e-5, atol=0.0)
