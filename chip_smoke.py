@@ -6,13 +6,20 @@ It needs one CUDA card and ``nvcc``; it imports nothing of JAX.  Phases, in
 order; any failure exits non-zero:
 
 1. device  — the card's name and power limit;
-2. kernels — builds ``csrc/contingency_counts.cu`` and runs both of its
+2. kernels — builds ``csrc/contingency_counts.cu`` and runs two of its
    entries at the alarm search shape (2048 candidates x 37 nodes x 4,973
    unique rows x 512 cells) on sampled ER candidates: the seg entry against
    its plain torch version, the fused entry against its plain version and
    against the seg entry (all bit-equal); times each entry, its plain
    version, the ``torch.bincount`` yardstick and the unfused path the fused
    entry replaces (``cell_index`` + seg entry) with CUDA events;
+2b. route sweep — both routes of the fused, seg and family entries at
+   S = 512 to 32,768 bins (``SWEEP_SHAPES``) and U = 698 / 5,000 unique
+   rows of 11 / 70 variables (``SWEEP_ROWS``; seeded random codes), on 256
+   candidates and on a 4,096-family chunk: the routes equal to each other
+   and to the plain version, each timed in ``SWEEP_REPEATS`` alternating
+   repeats; the crossover the rule in PERF.md reads from them beside
+   ``bic_kernel.NARROW_MAX_BINS``;
 3. card vs CPU — counts (exact) and scores (f32 tolerance, float64 exact
    path to 1e-9) of 64 candidates against the CPU plain scorer, and the
    alarm-width model's loss on a small batch against the CPU;
@@ -49,11 +56,16 @@ order; any failure exits non-zero:
    refine, the predictor dataset and the exact GP, GP-UCB ascent,
    closed-loop BO and the 512-eval budget comparison.  Each step's wall
    time, evals/s, best BIC and its float64 re-scores (kernel counts, and
-   host counts without the kernel), peak memory and both entries' launches
-   (from that step alone); then the fused entry held bit-equal to its plain
-   version on a dense-climb chunk and an island population, and the seg
-   entry on three of the delta climb's chunks (first frontier, a one-child
-   refresh, every child of its final graph), each timed;
+   host counts without the kernel), peak memory and every entry's launches
+   (from that step alone; the delta climb's family launches each held
+   bit-equal to the plain version as they happen, no other entry
+   launching there, and no step but the delta climb launching the family
+   entry); then the fused entry held bit-equal to its plain version on a
+   dense-climb chunk and an island population, and the family and the seg
+   entry on four of the delta climb's chunks (first frontier, a one-child
+   refresh, every child of its final graph, a full chunk), each route timed
+   beside the path the family entry replaced (the cell table, then the seg
+   entry);
 10. the pipeline — the port's ``ExperimentRunner`` on the alarm experiment
    in a temporary data dir on the card, with phase 5's and phase 9's cuts
    (corpus batch 8, 2 epochs, checkpointed at the end of them, island CEM
@@ -72,12 +84,13 @@ order; any failure exits non-zero:
    r_max 16, S = 65,536 bins per row, past one warp's shared memory, so both
    entries take their wide kernels.  A dense climb from the empty graph
    (``score_chunk`` 256, ``WIDE_CLIMB_STEPS`` steps) and a delta climb (its
-   default chunk of 4,096 families), each best held to its float64
-   re-scores; the fused wide kernel held bit-equal to its plain version on
-   a climb chunk, the seg wide kernel on the delta climb's chunks, each
-   timed beside its plain version, its bound (the output's bytes) and
-   ``torch.bincount``; launches per path; peak memory under 20 GiB; and
-   rows of 512 bins shown still taking the narrow kernels;
+   default chunk of 4,096 families, every family launch held), each best
+   held to its float64 re-scores; the fused wide kernel held bit-equal to
+   its plain version on a climb chunk, the family and seg wide kernels on
+   the delta climb's chunks, each timed beside its plain version, its
+   bound (the output's bytes) and ``torch.bincount``; launches per path;
+   peak memory under 20 GiB; and rows of 512 bins shown still taking the
+   narrow kernels;
 12. the native codec at link width — ``native.load()`` must build the
    library; the two n = 724 npz parts read through it, and decoded by it and
    by numpy (bit-equal) in 10 pairs of alternating order, graphs/s for both;
@@ -104,10 +117,11 @@ order; any failure exits non-zero:
    trip (bit-equal) and eval (``valid_ratio_mode`` 1); ``decode_and_score``
    on a decoded population of islands x population latents, one delta climb
    at the registry's accept batch under a wall cap, and one island CEM at
-   the tier's islands x population.  Every fused and seg launch of the
+   the tier's islands x population.  Every fused and family launch of the
    search steps is held bit for bit against its plain version as it
    happens; each best equals its float64 re-scores; the fused entry is
-   timed on the decoded population and the seg entry on the climb's chunks;
+   timed on the decoded population and the family and seg entries on the
+   climb's chunks;
    the search steps' peak stays under ``TIER_PEAK_GIB``;
 15. the registry's small tier, readout-free models (embed 32, 8 heads, 3
    layers, latent 32, no edge readout), cut in depth and counts only
@@ -118,7 +132,7 @@ order; any failure exits non-zero:
    ``steps_per_call`` steps timed with the device's busy share, and one
    readout-free chunk on the card and on the CPU from the same seed; (b)
    sachs with three-state variables (q_cap 4,096, S = 12,288 cells a row,
-   still the fused entry's narrow route), the structure search of a
+   on the route ``route()`` picks), the structure search of a
    ``variant="structure"`` runner (the family table, exact DP, the dense
    climb with restarts by table gather), then the fused entry timed on a
    table chunk and an exact-DP chunk on both routes; (c) synthetic_12 with
@@ -129,8 +143,8 @@ order; any failure exits non-zero:
    1e-5 relative); each exact optimum has the CPU's family count and equals
    the CPU's optimum and its host re-score to 1e-9; every climb and latent
    best lies at or below it and equals its own float64 re-score to 1e-5;
-   asia's reports are all present in both directories, none skipped; no
-   wide route launches on these paths;
+   asia's reports are all present in both directories, none skipped; each
+   entry's narrow and wide launches together equal the calls held;
 16. the registry's large tier at hepar2 (n = 70: embed 64, 4 layers,
    latent 1,792, an edge readout of rank 64, 67,910,090 parameters), cut in
    depth and counts only (``LARGE_*``, phase 9's island and refine
@@ -151,20 +165,21 @@ order; any failure exits non-zero:
    history 1-5 entries none below the first; every best (climb, islands,
    polish, refine, GP ascent, BO) equal to its float64 re-score to 1e-5,
    the climb's also to the host's kernel-free re-score to 1e-9, the
-   ground truth's BIC beside them; the GP the exact one.  (b) hepar2 with
-   four-state variables (q_cap 4,096, S = 16,384 cells a row, both entries
-   still narrow): a ``variant="structure"`` runner's search (the delta
-   climbs with the registry's restarts; the latent half skipped), then
-   both routes of both entries timed, each bit-equal to its plain version,
-   beside its byte bound: the seg entry on the climb's first-frontier
-   chunk and on a full 4,096 chunk, the fused entry on a population of
-   ``LARGE_POPULATION`` DAGs with hepar2's 123 edges.  Every fused and
-   seg launch of both runners is held bit for bit against its plain
-   version as it happens; no wide route launches on these paths.
+   ground truth's BIC beside them; the GP the exact one; the climbs count
+   through the family entry and never the seg entry.  (b) hepar2 with
+   four-state variables (q_cap 4,096, S = 16,384 cells a row): a
+   ``variant="structure"`` runner's search (the delta climbs with the
+   registry's restarts; the latent half skipped), then both routes of all
+   three entries timed, each bit-equal to its plain version, beside its
+   bound: the family and seg entries on the climb's chunks (a full 4,096
+   chunk among them), the fused entry on a population of
+   ``LARGE_POPULATION`` DAGs with hepar2's 123 edges.  Every fused, seg and
+   family launch of both runners is held bit for bit against its plain
+   version as it happens, on the route ``route()`` picks.
 
 The last stdout line is ``{"ok": true, "device": {...}}``; the line before
-it holds the kernels' JSON record (both entries, each with its narrow and
-its wide route), a ``train:`` line holds phases 5-8, a ``search_stage:``
+it holds the kernels' JSON record (three entries, each with its narrow and
+its wide route), a ``route_sweep:`` line phase 2b, a ``train:`` line phases 5-8, a ``search_stage:``
 line phase 9, a ``pipeline:`` line phase 10, and ``wide_rows:``,
 ``native_codec:`` and ``data_parallel:`` lines phases 11-13, a ``tier`` line
 phase 14, a ``small_tier`` line phase 15 and a ``large_tier`` line phase
@@ -289,7 +304,19 @@ LARGE_STATES = 4
 #: 1.17 GB of counts)
 LARGE_POPULATION = 256
 KERNELS = ("contingency_counts_fused", "contingency_counts_fused_wide", "contingency_counts",
-           "contingency_counts_wide")
+           "contingency_counts_wide", "contingency_counts_family", "contingency_counts_family_wide")
+#: the route sweep (phase 2b): bins per row as (q_cap, r_max), the unique
+#: rows with the variables of the dataset they stand for (sachs, hepar2),
+#: repeats of each route's timing, calls a timing
+SWEEP_SHAPES = {512: (256, 2), 2048: (512, 4), 4096: (1024, 4), 8192: (2048, 4),
+                12_288: (3072, 4), 16_384: (4096, 4), 32_768: (4096, 8)}
+SWEEP_ROWS = {698: 11, 5000: 70}
+SWEEP_REPEATS, SWEEP_CALLS = 6, 50
+#: the wide route leads a point only when its median is this far below the
+#: narrow route's (closer points are dispatch noise and stay narrow)
+SWEEP_MARGIN = 0.05
+#: candidates of the fused entry's sweep input, families of the others'
+SWEEP_CANDIDATES, SWEEP_FAMILIES = 256, 4096
 #: Published H100 SXM peak HBM bytes/s.
 H100_BYTES_PER_S = 3.35e12
 #: INT32 lanes of one H100 SXM per clock: 132 SMs x 64.
@@ -320,6 +347,32 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(stop) / reps
 
 
+def device_ms(fn, reps: int, warmup: int = 1, sleep_cycles: int = 20_000_000) -> float:
+    """Mean device time of ``fn()`` in ms over ``reps`` back-to-back calls,
+    the card held by a sleep kernel while the host queues them, so that the
+    host's dispatch does not show where a call is shorter than it; the
+    sleep doubles until the card is still asleep when the host is done."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    for _ in range(4):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(sleep_cycles)
+        start.record()
+        for _ in range(reps):
+            fn()
+        stop.record()
+        ahead = not start.query()
+        torch.cuda.synchronize()
+        if ahead:
+            return start.elapsed_time(stop) / reps
+        sleep_cycles *= 2
+    raise RuntimeError("chip_smoke check failed: the host never fell behind the sleeping card")
+
+
 def bound_of(nbytes: float, ops: float, clock_hz: float) -> dict:
     """The least time of a function that moves ``nbytes`` and does ``ops``
     INT32 operations on the card: the larger of the two times."""
@@ -342,6 +395,18 @@ def seg_bound(F: int, U: int, S: int, clock_hz: float) -> dict:
     """The seg entry's bound: F x U cells and U weights read, F x S counts
     written; one bin add per cell."""
     return bound_of(F * U * 4 + U * 4 + F * S * 4, F * U, clock_hz)
+
+
+def family_bound(parents, codes_cm, U: int, S: int, clock_hz: float) -> dict:
+    """The family entry's bound: the families (child and P slots, int32),
+    the cards, the codes and the weights read once, F x S counts written;
+    per family and unique row its filled slots' multiply-adds, the child and
+    the bin."""
+    F, P = parents.shape
+    n = codes_cm.shape[0]
+    nbytes = F * (P + 1) * 4 + n * 4 + codes_cm.numel() * codes_cm.element_size() + U * 4 \
+        + F * S * 4
+    return bound_of(nbytes, U * (float((parents >= 0).sum()) + 2 * F), clock_hz)
 
 
 def nvidia_smi(query: str, fmt: str = "csv,noheader") -> str:
@@ -474,6 +539,118 @@ def phase_kernels(torch, cfg, scorer, clock_hz) -> dict:
                         clock_hz)
 
 
+def sweep_inputs(torch, S: int, U: int, n: int) -> dict:
+    """The route sweep's inputs at S bins and U unique rows of n variables
+    with r_max states each, made from ``SEED``: every entry's arguments on
+    the shapes the paths send it (``SWEEP_CANDIDATES`` DAGs with 2n edges
+    for the fused entry; a delta-climb chunk of ``SWEEP_FAMILIES`` families,
+    each a child and 0-8 parents in 9 slots, for the family entry, and its
+    cells for the seg entry)."""
+    from dags_vae_search_tpu_torch.graphs import sampler
+    from dags_vae_search_tpu_torch.ops import bic_kernel, bic_torch
+
+    q_cap, r_max = SWEEP_SHAPES[S]
+    rng = np.random.default_rng(SEED + S + U)
+    codes_u = torch.as_tensor(rng.integers(0, r_max, size=(U, n)), dtype=torch.int32,
+                              device="cuda")
+    w = torch.as_tensor(rng.integers(1, 5, size=U), dtype=torch.float32, device="cuda")
+    cards = torch.full((n,), r_max, dtype=torch.int32, device="cuda")
+    codes_cm = bic_kernel.column_major_codes(codes_u, r_max)
+    _, adj = sampler.sample_er_batch(rng, SWEEP_CANDIDATES, n, 2 * n, n, max_in_degree=8)
+    strides, _ = bic_torch.parent_config_strides(torch.as_tensor(adj, device="cuda"), cards)
+    children = rng.integers(0, n, size=SWEEP_FAMILIES).astype(np.int32)
+    parents = np.full((SWEEP_FAMILIES, 9), -1, np.int32)
+    for i, y in enumerate(children):
+        k = rng.integers(0, min(9, n))
+        parents[i, :k] = rng.choice(np.delete(np.arange(n), y), size=k, replace=False)
+    family = (torch.as_tensor(children, device="cuda"), torch.as_tensor(parents, device="cuda"),
+              codes_cm, cards, w, q_cap, r_max)
+    seg, _ = bic_kernel.family_cells(family[0], family[1], codes_cm[:, :U], cards, q_cap, r_max)
+    return {"fused": (strides.transpose(1, 2).contiguous(), codes_cm, w, q_cap, r_max),
+            "seg": (w, seg, S), "family": family, "n": n}
+
+
+def phase_route_sweep(torch) -> dict:
+    """Phase 2b: both routes of each entry at every S of ``SWEEP_SHAPES``
+    and each U of ``SWEEP_ROWS``: the two routes' counts equal to each other
+    and to the plain version (tolerance 0), then ``SWEEP_REPEATS`` repeats
+    of ``SWEEP_CALLS`` calls a route in turns (narrow first in odd repeats,
+    wide first in even ones), each timed on the device alone
+    (:func:`device_ms`).  The rule PERF.md states reads the record: the
+    wide route is ahead at a point when it is faster in every repeat and its
+    median at least ``SWEEP_MARGIN`` below the narrow route's; an
+    entry's crossover for a U is the smallest S from which it is ahead at
+    every larger swept S; the narrow route keeps the S below the smaller
+    crossover of the two U, or, where the two crossovers differ by more
+    than 2x, the U * S up to the larger of the two U's last narrow points.
+    What the rule reads is printed beside ``bic_kernel``'s constants."""
+    from dags_vae_search_tpu_torch.ops import bic_kernel
+
+    launch = {
+        "fused": lambda args, wide: bic_kernel._launch_fused(*args, wide=wide),
+        "seg": lambda args, wide: bic_kernel._launch(*args, wide=wide),
+        "family": lambda args, wide: bic_kernel._launch_family(*args, wide=wide)}
+    plain = {"fused": lambda args: torch.cat([c for _, c in fused_plain_parts(args, 64)]),
+             "seg": lambda args: bic_kernel.contingency_counts_plain(*args),
+             "family": lambda args: bic_kernel.contingency_counts_family_plain(*args)}
+    points = []
+    for U, n in SWEEP_ROWS.items():
+        for S in SWEEP_SHAPES:
+            inputs = sweep_inputs(torch, S, U, n)
+            for entry in ("fused", "seg", "family"):
+                args = inputs[entry]
+                narrow, wide = launch[entry](args, False), launch[entry](args, True)
+                check(torch.equal(narrow, wide) and torch.equal(narrow, plain[entry](args)),
+                      f"route sweep {entry} S={S} U={U}: the routes or the plain version differ")
+                del narrow, wide
+                times = {"narrow": [], "wide": []}
+                for rep in range(SWEEP_REPEATS):
+                    for name in (("narrow", "wide") if rep % 2 == 0 else ("wide", "narrow")):
+                        times[name].append(device_ms(
+                            lambda: launch[entry](args, name == "wide"), reps=SWEEP_CALLS))
+                warp_bytes = {"fused": bic_kernel.fused_warp_bytes(S, n),
+                              "seg": bic_kernel.seg_warp_bytes(S),
+                              "family": bic_kernel.family_warp_bytes(S, 9)}[entry]
+                faster = all(w_ < n_ for n_, w_ in zip(times["narrow"], times["wide"]))
+                margin = np.median(times["wide"]) <= (1 - SWEEP_MARGIN) * np.median(times["narrow"])
+                points.append({"entry": entry, "U": U, "S": S, "narrow_ms": times["narrow"],
+                               "wide_ms": times["wide"], "wide_ahead": bool(faster and margin),
+                               "route": bic_kernel.route(entry, S, warp_bytes)})
+            del inputs
+            torch.cuda.empty_cache()
+    rule = {}
+    swept = list(SWEEP_SHAPES)
+    for entry in ("fused", "seg", "family"):
+        crossover, last_narrow = {}, {}
+        for U in SWEEP_ROWS:
+            ahead = [p["wide_ahead"] for p in points if p["entry"] == entry and p["U"] == U]
+            first = len(ahead)
+            while first > 0 and ahead[first - 1]:
+                first -= 1
+            crossover[U] = swept[first] if first < len(ahead) else None
+            last_narrow[U] = swept[first - 1] if first > 0 else None
+        found = [c for c in crossover.values() if c is not None]
+        if not found:
+            reading = {"bins": 58_112}
+        elif len(found) == len(crossover) and max(found) <= 2 * min(found):
+            below = [S for S in swept if S < min(found)]
+            reading = {"bins": below[-1] if below else 0}
+        else:
+            reading = {"rows_x_bins": max(U * S for U, S in last_narrow.items() if S)}
+        constant = {"bins": bic_kernel.NARROW_MAX_BINS[entry]}
+        rule[entry] = {"crossover_by_U": crossover, "last_narrow_by_U": last_narrow,
+                       "rule_reads": reading, "module": constant,
+                       "agree": reading == constant}
+    out = {"points": points, "rule": rule, "card": nvidia_smi("name,power.limit")}
+    for p in points:
+        print(f"route sweep {p['entry']:6s} U={p['U']:5d} S={p['S']:6d}: narrow "
+              f"{min(p['narrow_ms']):.4f}-{max(p['narrow_ms']):.4f} ms, wide "
+              f"{min(p['wide_ms']):.4f}-{max(p['wide_ms']):.4f} ms, wide ahead "
+              f"{p['wide_ahead']}, route() {p['route']}")
+    print("route_sweep:", json.dumps(out))
+    return out
+
+
 def phase_card_vs_cpu(torch, cfg, scorer, dataset) -> None:
     from dags_vae_search_tpu_torch.graphs import sampler
     from dags_vae_search_tpu_torch.models.pace_vae import make_model
@@ -560,7 +737,9 @@ def _counters() -> dict:
     return {"contingency_counts_fused": bic_kernel.contingency_counts_fused,
             "contingency_counts_fused_wide": bic_kernel.contingency_counts_fused_wide,
             "contingency_counts": bic_kernel.contingency_counts_kernel,
-            "contingency_counts_wide": bic_kernel.contingency_counts_wide}
+            "contingency_counts_wide": bic_kernel.contingency_counts_wide,
+            "contingency_counts_family": bic_kernel.contingency_counts_family,
+            "contingency_counts_family_wide": bic_kernel.contingency_counts_family_wide}
 
 
 def reset_launches() -> None:
@@ -929,23 +1108,26 @@ def phase_large_closure(torch) -> dict:
     return out
 
 
-def time_family_seg(torch, fam, final_adj: np.ndarray, clock_hz, max_rows=None,
-                    wide=False) -> dict:
-    """The seg entry at the delta climb's shapes, each built by the climb's
-    own ``refresh_families``: its first frontier (every single-parent family
-    of the empty graph), a one-child refresh, and a refresh of every child
-    of the climb's final graph (multi-parent families, up to ``max_parents``
-    parents); then a full ``DELTA_CHUNK`` of such families.  ``max_rows``
-    keeps the first rows of each (the climb's own chunks at large n).  Each
-    held bit-equal to the plain version (tolerance 0), timed beside it, the
-    ``torch.bincount`` yardstick and the bound; with ``wide``, the wide
-    kernel on the same cells too (bit-equal, timed)."""
+def time_family_seg(torch, fam, final_adj: np.ndarray, clock_hz, max_rows=None) -> dict:
+    """The family entry (what the delta climb calls) and the seg entry at
+    the climb's shapes, each built by the climb's own ``refresh_families``:
+    its first frontier (every single-parent family of the empty graph), a
+    one-child refresh, and a refresh of every child of the climb's final
+    graph (multi-parent families, up to ``max_parents`` parents); then a
+    full ``DELTA_CHUNK`` of such families.  ``max_rows`` keeps the first
+    rows of each (the climb's own chunks at large n).  Each route of both
+    entries (the narrow one where one warp's bins fit a block) held
+    bit-equal to the plain version (tolerance 0) and timed, beside the
+    family entry's plain version, the path it replaced (``fam.cells`` then
+    the seg entry), the cells alone, the ``torch.bincount`` yardstick on the
+    cells, and both entries' bounds from this input."""
     from dags_vae_search_tpu_torch.ops import bic_kernel
     from dags_vae_search_tpu_torch.search.delta_hillclimb import refresh_families
 
     n = fam.dataset.num_variables
     empty = np.zeros((n, n), bool)
-    w, S = fam._weights, fam.q_cap * fam.r_max
+    w, q_cap, r_max = fam._weights, fam.q_cap, fam.r_max
+    S = q_cap * r_max
     chunks = {key: refresh_families(adj, ys, fam.max_parents)[:2] for key, adj, ys in (
         ("first", empty, range(n)), ("refresh", empty, [0]), ("final", final_adj > 0, range(n)))}
     # a full chunk of real families, the shape a climb above n = 64 sends:
@@ -957,32 +1139,51 @@ def time_family_seg(torch, fam, final_adj: np.ndarray, clock_hz, max_rows=None,
     for key, (children, parents) in chunks.items():
         children = np.asarray(children, np.int32)[:max_rows]
         parents = np.asarray(parents, np.int32)[:max_rows]
+        args = (*fam._families(children, parents), fam._codes_cm, fam._cards, w, q_cap, r_max)
         seg = fam.cells(children, parents)[0]
         F, U = seg.shape
-        got = bic_kernel.contingency_counts_kernel(w, seg, S)
+        P = parents.shape[1]
         want = bic_kernel.contingency_counts_plain(w, seg, S)
-        check(torch.equal(got, want), f"family {key} chunk: seg kernel differs from its plain version")
+        check(torch.equal(bic_kernel.contingency_counts_family_plain(*args), want),
+              f"family {key} chunk: the family entry's plain version differs from the seg path")
+        runs = {"family_wide": lambda: bic_kernel._launch_family(*args, wide=True),
+                "seg_wide": lambda: bic_kernel._launch(w, seg, S, wide=True)}
+        if bic_kernel.family_warp_bytes(S, P) <= bic_kernel.MAX_SHARED_BYTES:
+            runs["family_narrow"] = lambda: bic_kernel._launch_family(*args)
+        if bic_kernel.seg_warp_bytes(S) <= bic_kernel.MAX_SHARED_BYTES:
+            runs["seg_narrow"] = lambda: bic_kernel._launch(w, seg, S)
+        rec = {"F": F, "U": U, "S": S, "P": P,
+               "max_parents_in_chunk": int((parents >= 0).sum(1).max()),
+               "family_route": bic_kernel.route("family", S, bic_kernel.family_warp_bytes(S, P)),
+               "seg_route": bic_kernel.route("seg", S, bic_kernel.seg_warp_bytes(S))}
+        err = 0.0
+        for name, run in runs.items():
+            got = run()
+            check(torch.equal(got, want), f"family {key} chunk: {name} differs from the plain version")
+            err = max(err, float((got - want).abs().max()))
+            rec[f"{name}_ms"] = cuda_ms(run, reps=20)
+        del got
         flat = (torch.arange(F, device="cuda", dtype=torch.int64)[:, None] * S + seg).reshape(-1)
         w_rep = w.expand(F, U).reshape(-1)
-        t[key] = {
-            "F": F, "U": U, "S": S, "max_parents_in_chunk": int((parents >= 0).sum(1).max()),
-            "err": float((got - want).abs().max()),
-            "ms": cuda_ms(lambda: bic_kernel.contingency_counts_kernel(w, seg, S), reps=20),
-            "plain_ms": cuda_ms(lambda: bic_kernel.contingency_counts_plain(w, seg, S), reps=3,
-                                warmup=1),
+        rec.update({
+            "err": err,
+            "ms": rec[f"family_{rec['family_route']}_ms"],
+            "seg_ms": rec[f"seg_{rec['seg_route']}_ms"],
+            "family_plain_ms": cuda_ms(lambda: bic_kernel.contingency_counts_family_plain(*args),
+                                       reps=3, warmup=1),
+            "seg_plain_ms": cuda_ms(lambda: bic_kernel.contingency_counts_plain(w, seg, S),
+                                    reps=3, warmup=1),
             "bincount_ms": cuda_ms(lambda: torch.bincount(flat, weights=w_rep, minlength=F * S),
                                    reps=3, warmup=1),
             "cells_ms": cuda_ms(lambda: fam.cells(children, parents), reps=5),
-            **seg_bound(F, U, S, clock_hz),
-        }
-        if wide:
-            check(torch.equal(bic_kernel.contingency_counts_wide(w, seg, S), want),
-                  f"family {key} chunk: seg wide kernel differs from its plain version")
-            t[key]["route"] = bic_kernel.route(bic_kernel.seg_warp_bytes(S))
-            t[key]["wide_ms"] = cuda_ms(lambda: bic_kernel.contingency_counts_wide(w, seg, S),
-                                        reps=20)
-        del flat, w_rep, seg
-    print("seg entry at the delta climb's shapes: " + json.dumps(t))
+            "cells_seg_ms": cuda_ms(lambda: bic_kernel.contingency_counts_kernel(
+                w, fam.cells(children, parents)[0], S), reps=5),
+            **family_bound(args[1], fam._codes_cm, U, S, clock_hz),
+            "seg_bound": seg_bound(F, U, S, clock_hz),
+        })
+        t[key] = rec
+        del flat, w_rep, seg, want
+    print("family and seg entries at the delta climb's shapes: " + json.dumps(t))
     return t
 
 
@@ -1025,8 +1226,8 @@ def hold_fused(torch, scorer, adj, label: str, clock_hz: float, chunk=None) -> d
            "plain_ms": cuda_ms(lambda: fused_plain_parts(args, chunk), reps=2, warmup=1),
            **fused_bound(args[0], args[1], args[2], adj, scorer.q_cap * scorer.r_max, clock_hz)}
     del got
-    if bic_kernel.route(bic_kernel.fused_warp_bytes(scorer.q_cap * scorer.r_max,
-                                                    adj.shape[-1])) == "narrow":
+    S = scorer.q_cap * scorer.r_max
+    if bic_kernel.route("fused", S, bic_kernel.fused_warp_bytes(S, adj.shape[-1])) == "narrow":
         describe_rows(torch, (adj > 0).float(), label)
     print(f"{label}: fused kernel vs plain max |diff| {out['err']} (tolerance 0); "
           + json.dumps(out))
@@ -1065,16 +1266,20 @@ def phase_search_stage(torch, cfg, scorer, dataset, model, test_c, clock_hz) -> 
         out[np.ix_(labels, labels)] = adj
         return out
 
-    def step(name, fn, exact_of=None, evals=None, **extra):
+    def step(name, fn, exact_of=None, evals=None, hold=False, **extra):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         reset_launches()
-        t0 = time.perf_counter()
-        res = fn()
-        torch.cuda.synchronize()
-        seconds = time.perf_counter() - t0
+        with held_launches(torch) if hold else contextlib.nullcontext() as held:
+            t0 = time.perf_counter()
+            res = fn()
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
         info = {"seconds": seconds, "launches": read_launches(),
                 "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+        if hold:
+            check_held(info["launches"], held, name)
+            info.update(held=held, seconds_without_checks=seconds - held["check_s"])
         if exact_of is not None:
             evals = res.num_evals
             info.update(best_bic=res.best_score, best_bic_exact=exact_of(res), evals=evals,
@@ -1094,10 +1299,11 @@ def phase_search_stage(torch, cfg, scorer, dataset, model, test_c, clock_hz) -> 
         iterations=hc.iterations, converged=bool(hc.converged), restart_history=hc.history,
         host_reads_per_step=-(-3 * n * n // 4096))
 
-    # 2. one family-delta climb from the empty graph: the seg entry's path
+    # 2. one family-delta climb from the empty graph: the family entry's
+    # path, every launch held against its plain version
     delta = step("delta_hill_climb", lambda: delta_hill_climb(
         fam, n, max_iters=max(s.hill_climb_iters, 4 * n), chunk=DELTA_CHUNK,
-        accept_batch=s.hill_climb_accept_batch), climb_exact)
+        accept_batch=s.hill_climb_accept_batch), climb_exact, hold=True)
     d_info = steps["delta_hill_climb"]
     check(abs(d_info["best_bic_exact"] - delta.best_score) <= 1.0,
           f"delta climb's internal score {delta.best_score} vs exact {d_info['best_bic_exact']}")
@@ -1220,11 +1426,12 @@ def phase_search_stage(torch, cfg, scorer, dataset, model, test_c, clock_hz) -> 
     winner = max(comp, key=lambda k: steps[k]["best_bic_exact"])
 
     for name, info in steps.items():
-        fused, seg = info["launches"]["contingency_counts_fused"], info["launches"]["contingency_counts"]
+        launches = info["launches"]
+        fused, family = launches["contingency_counts_fused"], launches["contingency_counts_family"]
         if name == "delta_hill_climb":
-            check(seg > 0 and fused == 0, f"{name}: launches {info['launches']}")
+            check(family > 0 and sum(launches.values()) == family, f"{name}: launches {launches}")
         else:
-            check(fused > 0 and seg == 0, f"{name}: launches {info['launches']}")
+            check(fused > 0 and sum(launches.values()) == fused, f"{name}: launches {launches}")
 
     # the fused entry at the inputs these paths send it: a dense-climb chunk
     # (the first window of 4,096 moves, hill_climb's default, from the
@@ -1264,31 +1471,35 @@ def phase_wide_rows(torch, alarm_scorer, clock_hz) -> dict:
     print(f"wide rows ({WIDE_NAME}, n={n}, {dataset.num_cases} cases, cards up to "
           f"{WIDE_MAX_CARD}): r_max={scorer.r_max}, U={scorer.num_unique_rows}, "
           f"q_cap={scorer.q_cap}, S={S}")
-    check(S == 65_536 and bic_kernel.route(bic_kernel.fused_warp_bytes(S, n))
-          == bic_kernel.route(bic_kernel.seg_warp_bytes(S)) == "wide",
-          f"S={S} does not take the wide route")
+    check(S == 65_536 and bic_kernel.route("fused", S, bic_kernel.fused_warp_bytes(S, n))
+          == bic_kernel.route("family", S, bic_kernel.family_warp_bytes(S, s.max_parents + 1))
+          == "wide", f"S={S} does not take the wide route")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     steps: dict = {}
 
-    def step(name, fn):
+    def step(name, fn, hold=False):
         torch.cuda.synchronize()
         reset_launches()
-        t0 = time.perf_counter()
-        res = fn()
-        torch.cuda.synchronize()
-        seconds = time.perf_counter() - t0
+        with held_launches(torch) if hold else contextlib.nullcontext() as held:
+            t0 = time.perf_counter()
+            res = fn()
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
         steps[name] = {"seconds": seconds, "launches": read_launches(),
                        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+        if hold:
+            check_held(steps[name]["launches"], held, name)
+            steps[name].update(held=held, seconds_without_checks=seconds - held["check_s"])
         return res
 
     dense = step("dense_climb", lambda: hillclimb.hill_climb(
         scorer, n, max_iters=WIDE_CLIMB_STEPS, score_chunk=WIDE_CLIMB_CHUNK))
     delta = step("delta_climb", lambda: delta_hill_climb(
         fam, n, max_iters=max(s.hill_climb_iters, 4 * n), chunk=DELTA_CHUNK,
-        accept_batch=s.hill_climb_accept_batch))
+        accept_batch=s.hill_climb_accept_batch), hold=True)
     for name, res, entry in (("dense_climb", dense, "contingency_counts_fused_wide"),
-                             ("delta_climb", delta, "contingency_counts_wide")):
+                             ("delta_climb", delta, "contingency_counts_family_wide")):
         info = steps[name]
         launches = info["launches"]
         check(launches[entry] > 0 and sum(launches.values()) == launches[entry],
@@ -1744,7 +1955,8 @@ def phase_pipeline(torch, cfg, name: str, corpus, train_c, test_c, hc_best: floa
     }
     summary = {s: {"wall_s": round(v["seconds"], 3), "peak_gib": round(v["peak_mem_gib"], 3),
                    "fused": v["launches"]["contingency_counts_fused"],
-                   "seg": v["launches"]["contingency_counts"]} for s, v in stages.items()}
+                   "family": v["launches"]["contingency_counts_family"]}
+               for s, v in stages.items()}
     print(f"pipeline stages ({nvidia_smi('name,power.limit')}): " + json.dumps(summary)
           + f"; CLI gp roundtrip {cli_s:.2f} s")
     return record
@@ -1752,42 +1964,63 @@ def phase_pipeline(torch, cfg, name: str, corpus, train_c, test_c, hc_best: floa
 
 @contextlib.contextmanager
 def held_launches(torch, chunk=TIER_HOLD_CANDIDATES):
-    """Inside the block, every launch of the fused and of the seg entry is
-    held against its plain version on the same inputs, bit for bit
-    (tolerance 0); the fused entry's plain version runs on ``chunk``
-    candidates at a time.  Yields a record of the launches held and the
-    seconds the comparisons took (kept out of the rates).  An entry counts its launches on the function its module name
-    holds, so each checking wrapper carries the count while it is installed
-    and hands it back."""
+    """Inside the block, every launch of the fused, the seg and the family
+    entry (on either route) is held against its plain version on the same
+    inputs, bit for bit (tolerance 0); the fused entry's plain version runs
+    on ``chunk`` candidates at a time.  Yields a record of the calls held
+    per entry and the seconds the comparisons took (kept out of the rates).
+    An entry counts its launches on the function its module name holds, so
+    each checking wrapper carries the count while it is installed and hands
+    it back."""
     from dags_vae_search_tpu_torch.ops import bic_kernel
 
-    fused, seg = bic_kernel.contingency_counts_fused, bic_kernel.contingency_counts_kernel
-    held = {"fused": 0, "seg": 0, "check_s": 0.0}
+    names = {"fused": "contingency_counts_fused", "seg": "contingency_counts_kernel",
+             "family": "contingency_counts_family"}
+    entries = {key: getattr(bic_kernel, name) for key, name in names.items()}
+    held = {"fused": 0, "seg": 0, "family": 0, "check_s": 0.0}
 
-    def fused_held(*args):
-        out = fused(*args)
-        t0 = time.perf_counter()
+    def check_fused_plain(out, args):
         check_fused(torch, out, args, f"fused launch {held['fused']}", chunk)
-        held["fused"] += 1
-        held["check_s"] += time.perf_counter() - t0
-        return out
 
-    def seg_held(w, cells, S):
-        out = seg(w, cells, S)
-        t0 = time.perf_counter()
-        check(torch.equal(out, bic_kernel.contingency_counts_plain(w, cells, S)),
+    def check_seg_plain(out, args):
+        check(torch.equal(out, bic_kernel.contingency_counts_plain(*args)),
               f"seg launch {held['seg']} differs from the plain version")
-        held["seg"] += 1
-        held["check_s"] += time.perf_counter() - t0
-        return out
 
-    fused_held.launches, seg_held.launches = fused.launches, seg.launches
-    bic_kernel.contingency_counts_fused, bic_kernel.contingency_counts_kernel = fused_held, seg_held
+    def check_family_plain(out, args):
+        check(torch.equal(out, bic_kernel.contingency_counts_family_plain(*args)),
+              f"family launch {held['family']} differs from the plain version")
+
+    checks = {"fused": check_fused_plain, "seg": check_seg_plain, "family": check_family_plain}
+
+    def holding(key):
+        def held_entry(*args):
+            out = entries[key](*args)
+            t0 = time.perf_counter()
+            checks[key](out, args)
+            held[key] += 1
+            held["check_s"] += time.perf_counter() - t0
+            return out
+        held_entry.launches = entries[key].launches
+        return held_entry
+
+    wrappers = {key: holding(key) for key in names}
+    for key, name in names.items():
+        setattr(bic_kernel, name, wrappers[key])
     try:
         yield held
     finally:
-        bic_kernel.contingency_counts_fused, bic_kernel.contingency_counts_kernel = fused, seg
-        fused.launches, seg.launches = fused_held.launches, seg_held.launches
+        for key, name in names.items():
+            setattr(bic_kernel, name, entries[key])
+            entries[key].launches = wrappers[key].launches
+
+
+def check_held(launches: dict, held: dict, label: str) -> None:
+    """Every call of an entry inside :func:`held_launches` launched once, on
+    one of its two routes, and was held."""
+    for key, name in (("fused", "contingency_counts_fused"), ("seg", "contingency_counts"),
+                      ("family", "contingency_counts_family")):
+        check(launches[name] + launches[f"{name}_wide"] == held[key],
+              f"{label}: launches {launches}, held {held}")
 
 
 def tier_train(torch, cfg, train_c, test_c, matmul_dtype, log_dir) -> tuple:
@@ -1940,7 +2173,7 @@ def phase_tier(torch, cfg, clock_hz) -> dict:
         peak_of("checkpoint_eval")
         print("link checkpoint + eval: " + json.dumps(out["checkpoint_eval"]))
 
-        # 4. search through the scorer (fused entry) and the delta climb (seg entry)
+        # 4. search through the scorer (fused entry) and the delta climb (family entry)
         dataset = runner.scoring_dataset()
         scorer = runner.scorer()
         check(scorer.impl == "kernel" and scorer.q_cap * scorer.r_max == 512,
@@ -1988,8 +2221,8 @@ def phase_tier(torch, cfg, clock_hz) -> dict:
             fam, n, max_iters=s.hill_climb_iters, chunk=DELTA_CHUNK,
             time_budget_s=TIER_CLIMB_S, accept_batch=s.hill_climb_accept_batch))
         info = steps["delta_hill_climb"]
-        check(info["launches"]["contingency_counts"] == info["held"]["seg"] > 0
-              and sum(info["launches"].values()) == info["launches"]["contingency_counts"],
+        check(info["launches"]["contingency_counts_family"] == info["held"]["family"] > 0
+              and sum(info["launches"].values()) == info["launches"]["contingency_counts_family"],
               f"delta climb launches {info['launches']}")
         check(all(b >= a for a, b in zip(climb.history, climb.history[1:])), "climb history decreased")
         info.update(moves=climb.iterations, converged=bool(climb.converged),
@@ -2158,10 +2391,11 @@ def chunk_card_vs_cpu(torch, cfg, train_c, batch=None, every_element=False) -> d
 
 def held_step(torch, steps: dict, key: str, fn, chunk=TIER_HOLD_CANDIDATES):
     """One path of phases 15-16 on its own: launches reset before it and
-    read after it, every fused and seg launch held bit for bit against its
-    plain version as it happens (the fused one ``chunk`` candidates a call;
-    the comparisons' seconds kept out), peak memory.  No wide route may
-    launch."""
+    read after it, every fused, seg and family launch held bit for bit
+    against its plain version as it happens (the fused one ``chunk``
+    candidates a call; the comparisons' seconds kept out), each entry's
+    narrow and wide launches together equal to the calls held, peak
+    memory."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
@@ -2171,10 +2405,7 @@ def held_step(torch, steps: dict, key: str, fn, chunk=TIER_HOLD_CANDIDATES):
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
     launches = read_launches()
-    check(launches["contingency_counts_fused"] == held["fused"]
-          and launches["contingency_counts"] == held["seg"]
-          and launches["contingency_counts_fused_wide"] == launches["contingency_counts_wide"] == 0,
-          f"{key}: launches {launches}, held {held}")
+    check_held(launches, held, key)
     steps[key] = {"seconds": seconds, "seconds_without_checks": seconds - held["check_s"],
                   "held": held, "launches": launches,
                   "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
@@ -2279,9 +2510,10 @@ def small_search(torch, runner, steps: dict, key: str) -> tuple:
 
 
 def time_fused_routes(torch, scorer, adj, label: str, clock_hz: float) -> dict:
-    """The fused entry on one input of the small tier's paths (held and
-    timed by :func:`hold_fused`), and the wide route on the same input: its
-    counts equal, its time beside the narrow route's."""
+    """The fused entry on one input of the tiers' paths (held and timed on
+    the route ``route()`` picks by :func:`hold_fused`), and both of its
+    kernels launched directly on the same input: counts equal, times side
+    by side."""
     from dags_vae_search_tpu_torch.ops import bic_kernel, bic_torch
 
     out = hold_fused(torch, scorer, adj, label, clock_hz, chunk=TIER_HOLD_CANDIDATES)
@@ -2289,14 +2521,16 @@ def time_fused_routes(torch, scorer, adj, label: str, clock_hz: float) -> dict:
     args = (strides.transpose(1, 2).contiguous(), scorer._codes_cm, scorer._weights,
             scorer.q_cap, scorer.r_max)
     S = scorer.q_cap * scorer.r_max
-    out["route"] = bic_kernel.route(bic_kernel.fused_warp_bytes(S, adj.shape[-1]))
+    out["route"] = bic_kernel.route("fused", S,
+                                    bic_kernel.fused_warp_bytes(S, adj.shape[-1]))
     out["S"] = S
-    check(torch.equal(bic_kernel.contingency_counts_fused_wide(*args),
-                      bic_kernel.contingency_counts_fused(*args)),
-          f"{label}: the wide route's counts differ from the narrow route's")
-    out["wide_ms"] = cuda_ms(lambda: bic_kernel.contingency_counts_fused_wide(*args), reps=10)
-    print(f"{label}: narrow {out['ms']:.4f} ms, wide {out['wide_ms']:.4f} ms, bound "
-          f"{out['bound_ms']:.4f} ms ({out['bound_by']})")
+    want = bic_kernel.contingency_counts_fused(*args)
+    for name, wide in (("narrow", False), ("wide", True)):
+        check(torch.equal(bic_kernel._launch_fused(*args, wide=wide), want),
+              f"{label}: the {name} route's counts differ from the entry's")
+        out[f"{name}_ms"] = cuda_ms(lambda: bic_kernel._launch_fused(*args, wide=wide), reps=10)
+    print(f"{label}: narrow {out['narrow_ms']:.4f} ms, wide {out['wide_ms']:.4f} ms (route() "
+          f"picks {out['route']}), bound {out['bound_ms']:.4f} ms ({out['bound_by']})")
     return out
 
 
@@ -2416,9 +2650,10 @@ def phase_small_tier(torch, clock_hz) -> dict:
         report, kept = small_search(torch, runner, steps, "sachs_search")
         check(report["island_cem"] == "skipped (no checkpoint)", "sachs ran the latent half")
         out["sachs"] = check_small_search(torch, runner, report, kept, "sachs")
-        launches = steps["sachs_search"]["launches"]["contingency_counts_fused"]
+        launches = steps["sachs_search"]["launches"]
+        launches = launches["contingency_counts_fused"] + launches["contingency_counts_fused_wide"]
         # table 2 chunks, the DP one chunk per node, the float64 re-scores of
-        # the optimum, the climb and the ground truth
+        # the optimum, the climb and the ground truth, on either route
         check(launches == 2 + 11 + 3, f"sachs search: {launches} fused launches")
         out["sachs"]["fused"] = {
             key: time_fused_routes(torch, scorer, adj, f"sachs {key}", clock_hz)
@@ -2438,9 +2673,11 @@ def phase_small_tier(torch, clock_hz) -> dict:
         out["synthetic_12"] = check_small_search(torch, runner, report, kept, "synthetic_12")
     out["steps"] = steps
     for key, info in steps.items():
+        launches = info["launches"]
         print(f"small tier {key}: {info['seconds']:.3f} s ({info['seconds_without_checks']:.3f} s "
-              f"without the checks), fused {info['launches']['contingency_counts_fused']} "
-              f"(held {info['held']['fused']}), peak {info['peak_mem_gib']:.3f} GiB")
+              f"without the checks), fused {launches['contingency_counts_fused']} narrow + "
+              f"{launches['contingency_counts_fused_wide']} wide (held {info['held']['fused']}), "
+              f"peak {info['peak_mem_gib']:.3f} GiB")
     return out
 
 
@@ -2611,9 +2848,10 @@ def phase_large_tier(torch, clock_hz) -> dict:
             "roundtrip": {k: reports["roundtrip"][k] for k in ("true_bic", "gp_predicted_bic",
                                                                 "relative_error", "decode_valid")}}
         check(out["hepar2"]["gp"]["model"] == "ExactGP", "the hepar2 GP is not the exact GP")
-        check(steps["large_search"]["launches"]["contingency_counts"] > 0
-              and steps["large_search"]["launches"]["contingency_counts_fused"] > 0,
-              f"hepar2 search launches {steps['large_search']['launches']}")
+        launches = steps["large_search"]["launches"]
+        check(launches["contingency_counts_family"] > 0 and launches["contingency_counts_fused"] > 0
+              and launches["contingency_counts"] == launches["contingency_counts_wide"] == 0,
+              f"hepar2 search launches {launches}")
         print(f"hepar2: bests {json.dumps(bests)}, ground truth {search['ground_truth_bic']:.4f}, "
               f"restart history {out['climbs']['restart_history']}")
 
@@ -2632,6 +2870,10 @@ def phase_large_tier(torch, clock_hz) -> dict:
         with open(os.path.join(runner.root, "report_search.json")) as fh:
             search = json.load(fh)
         check(search["island_cem"] == "skipped (no checkpoint)", "four states: ran the latent half")
+        launches = steps["large_four_state_search"]["launches"]
+        check(launches["contingency_counts_family"] + launches["contingency_counts_family_wide"] > 0
+              and launches["contingency_counts"] == launches["contingency_counts_wide"] == 0,
+              f"four-state search launches {launches}")
         climbs = kept["delta_hill_climb"]
         four = {"S": S, "unique_rows": scorer.num_unique_rows,
                 "climbs": check_climbs(climbs, search, "four states")}
@@ -2646,99 +2888,82 @@ def phase_large_tier(torch, clock_hz) -> dict:
         fam = FamilyBatchScorer(runner.scoring_dataset(), max_parents=s.max_parents,
                                 q_cap=scorer.q_cap, device="cuda")
         four["family_seg"] = time_family_seg(torch, fam, hc.best_adj, clock_hz,
-                                             max_rows=DELTA_CHUNK, wide=True)
+                                             max_rows=DELTA_CHUNK)
         _, pop = sampler.sample_connected_dags(np.random.default_rng(SEED), LARGE_POPULATION, n,
                                                123, n, max_in_degree=s.max_parents)
         four["fused"] = time_fused_routes(torch, scorer, torch.as_tensor(pop, device="cuda"),
                                           "hepar2 four-state population", clock_hz)
         out["four_states"] = four
-        print(f"hepar2 four states (S = {S}, {nvidia_smi('name,power.limit')}): "
-              f"seg narrow / wide first frontier {four['family_seg']['first']['ms']:.4f} / "
-              f"{four['family_seg']['first']['wide_ms']:.4f} ms (bound "
-              f"{four['family_seg']['first']['bound_ms']:.4f}), full chunk "
-              f"{four['family_seg']['full']['ms']:.4f} / {four['family_seg']['full']['wide_ms']:.4f}"
-              f" ms (bound {four['family_seg']['full']['bound_ms']:.4f}); fused narrow / wide "
-              f"{four['fused']['ms']:.4f} / {four['fused']['wide_ms']:.4f} ms (bound "
+        first, full = four["family_seg"]["first"], four["family_seg"]["full"]
+        print(f"hepar2 four states (S = {S}, {nvidia_smi('name,power.limit')}): family entry "
+              f"narrow / wide first frontier {first['family_narrow_ms']:.4f} / "
+              f"{first['family_wide_ms']:.4f} ms, full chunk {full['family_narrow_ms']:.4f} / "
+              f"{full['family_wide_ms']:.4f} ms (bound {full['bound_ms']:.4f}; cells + seg "
+              f"{full['cells_seg_ms']:.4f} ms); seg narrow / wide full chunk "
+              f"{full['seg_narrow_ms']:.4f} / {full['seg_wide_ms']:.4f} ms (bound "
+              f"{full['seg_bound']['bound_ms']:.4f}); fused narrow / wide "
+              f"{four['fused']['narrow_ms']:.4f} / {four['fused']['wide_ms']:.4f} ms (bound "
               f"{four['fused']['bound_ms']:.4f})")
     out["steps"] = steps
     for key, info in steps.items():
+        launches = info["launches"]
         print(f"large tier {key}: {info['seconds']:.3f} s ({info['seconds_without_checks']:.3f} s "
-              f"without the checks), fused {info['launches']['contingency_counts_fused']}, seg "
-              f"{info['launches']['contingency_counts']}, peak {info['peak_mem_gib']:.3f} GiB")
+              f"without the checks), fused {launches['contingency_counts_fused']} + "
+              f"{launches['contingency_counts_fused_wide']} wide, family "
+              f"{launches['contingency_counts_family']} + "
+              f"{launches['contingency_counts_family_wide']} wide, peak "
+              f"{info['peak_mem_gib']:.3f} GiB")
     return out
 
 
 def kernel_records(er: dict, decoded: dict, stage: dict, wide: dict, tier: dict, small: dict,
-                   large: dict, launches_by_path: dict) -> list:
+                   large: dict, sweep: dict, launches_by_path: dict) -> list:
     """The kernels' records, each route at its main path's inputs: the fused
-    entry on the decoded population (the latent search's), the seg entry on
-    the delta climb's first frontier, their wide routes on phase 11's dense
-    climb chunk and delta climb's first frontier; the other inputs' times
-    beside them, phase 14's at link width and phase 15's at sachs with three
-    states (both routes) among them.  ``launches`` sums
-    the main paths' runs, each read on its own."""
+    entry on the decoded population (the latent search's), the family entry
+    and the seg entry on the delta climb's first frontier at alarm width,
+    the wide routes on phase 11's dense climb chunk and delta climb's first
+    frontier; the other inputs' times beside them (phase 14's at link
+    width, phase 15's at sachs with three states, phase 16's at hepar2 with
+    four states) and the route sweep's times.  ``launches`` sums the main
+    paths' runs, each read on its own."""
     family, fused_stage = stage["family_seg"], stage["fused_stage"]
     sachs = small["sachs"]["fused"]
     four = large["four_states"]
-    stage_err = {"fused": [f["err"] for f in [*fused_stage.values(), *sachs.values(),
-                                              four["fused"]]],
-                 "seg": [f["err"] for f in [*family.values(), *tier["family_seg"].values(),
-                                            *four["family_seg"].values()]]}
+    chunks = [*family.values(), *tier["family_seg"].values(), *four["family_seg"].values(),
+              *wide["family_seg"].values()]
+    errs = {"fused": [f["err"] for f in [*fused_stage.values(), *sachs.values(), four["fused"]]],
+            "seg": [f["err"] for f in chunks]}
 
-    def record(name, key, plain_key, main, library_ms, extra):
-        return {
-            "name": name,
-            "route": "cuda",
-            "source": SOURCE,
-            "replaces": REPLACES,
-            "launches": sum(path[name] for path in launches_by_path.values()),
-            "launches_by_path": {p: path[name] for p, path in launches_by_path.items()},
-            "max_abs_err": max(er[f"err_{key}"], decoded[f"err_{key}"], *stage_err[key]),
-            **main,
-            "library_ms": library_ms,
-            "ms_er": er[f"{key}_ms"],
-            "plain_ms_er": er[plain_key],
-            "bound_ms_er": er[f"{key}_bound_ms"],
-            **extra,
-        }
+    def swept(entry):
+        return {f"U{p['U']}_S{p['S']}": {"narrow_ms": p["narrow_ms"], "wide_ms": p["wide_ms"]}
+                for p in sweep["points"] if p["entry"] == entry}
 
-    def wide_record(name, main, library_ms, extra):
+    def record(name, main, library_ms, extra):
         return {"name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES,
                 "launches": sum(path[name] for path in launches_by_path.values()),
                 "launches_by_path": {p: path[name] for p, path in launches_by_path.items()},
                 **main, "library_ms": library_ms, **extra}
 
-    first = family["first"]
-    chunk, wide_first = wide["fused_climb_chunk"], wide["family_seg"]["first"]
-    wide_records = [
-        wide_record("contingency_counts_fused_wide", {
-            "max_abs_err": chunk["err"], "ms": chunk["ms"], "plain_ms": chunk["plain_ms"],
-            "bound_ms": chunk["bound_ms"], "bound_by": chunk["bound_by"],
-            "inputs": f"dense climb chunk at barley width (R={chunk['rows']}, S=65536)",
-            "bytes": chunk["bytes"], "int_ops": chunk["int_ops"],
-        }, None, {**{f"sachs_{key}_ms": sachs[key]["wide_ms"] for key in sachs},
-                  "hepar2_four_state_population_ms": four["fused"]["wide_ms"]}),
-        wide_record("contingency_counts_wide", {
-            "max_abs_err": max(f["err"] for f in wide["family_seg"].values()),
-            "ms": wide_first["ms"], "plain_ms": wide_first["plain_ms"],
-            "bound_ms": wide_first["bound_ms"], "bound_by": wide_first["bound_by"],
-            "inputs": f"delta climb's first frontier at barley width (F={wide_first['F']}, "
-                      f"U={wide_first['U']}, S={wide_first['S']})",
-            "bytes": wide_first["bytes"], "int_ops": wide_first["int_ops"],
-        }, wide_first["bincount_ms"], {
-            "family_refresh": wide["family_seg"]["refresh"],
-            "family_final_refresh": wide["family_seg"]["final"],
-            "family_full_chunk": wide["family_seg"]["full"],
-            "hepar2_four_state_ms": {k: v["wide_ms"] for k, v in four["family_seg"].items()},
-        }),
-    ]
+    def family_main(chunk, route, inputs):
+        return {"max_abs_err": max(f["err"] for f in chunks), "ms": chunk[f"family_{route}_ms"],
+                "plain_ms": chunk["family_plain_ms"], "bound_ms": chunk["bound_ms"],
+                "bound_by": chunk["bound_by"], "inputs": inputs, "bytes": chunk["bytes"],
+                "int_ops": chunk["int_ops"]}
+
+    first, wide_first = family["first"], wide["family_seg"]["first"]
+    chunk = wide["fused_climb_chunk"]
+    shape = "F={F}, U={U}, S={S}, P={P}"
     return [
-        record("contingency_counts_fused", "fused", "fused_plain_ms", {
+        record("contingency_counts_fused", {
+            "max_abs_err": max(er["err_fused"], decoded["err_fused"], *errs["fused"]),
             "ms": decoded["fused_ms"], "plain_ms": decoded["fused_plain_ms"],
             "bound_ms": decoded["fused_bound_ms"], "bound_by": decoded["fused_bound_by"],
             "inputs": "decoded population", "bytes": decoded["fused_bytes"],
             "int_ops": decoded["fused_int_ops"],
         }, None, {
+            "narrow_max_bins": sweep["rule"]["fused"],
+            "ms_er": er["fused_ms"], "plain_ms_er": er["fused_plain_ms"],
+            "bound_ms_er": er["fused_bound_ms"],
             "before_ms": decoded["before_ms"], "before_ms_er": er["before_ms"],
             "small_span_ms": decoded["small_span_ms"], "small_span_ms_er": er["small_span_ms"],
             "stage_climb_chunk": fused_stage["climb_chunk"],
@@ -2747,24 +2972,61 @@ def kernel_records(er: dict, decoded: dict, stage: dict, wide: dict, tier: dict,
             "sachs_table_chunk": sachs["table_chunk"],
             "sachs_exact_chunk": sachs["exact_chunk"],
             "hepar2_four_state_population": four["fused"],
+            "route_sweep": swept("fused"),
         }),
-        record("contingency_counts", "seg", "seg_plain_ms", {
-            "ms": first["ms"], "plain_ms": first["plain_ms"], "bound_ms": first["bound_ms"],
-            "bound_by": first["bound_by"],
-            "inputs": f"delta climb's first frontier (F={first['F']}, U={first['U']}, "
-                      f"S={first['S']})",
-            "bytes": first["bytes"], "int_ops": first["int_ops"],
+        record("contingency_counts_fused_wide", {
+            "max_abs_err": chunk["err"], "ms": chunk["ms"], "plain_ms": chunk["plain_ms"],
+            "bound_ms": chunk["bound_ms"], "bound_by": chunk["bound_by"],
+            "inputs": f"dense climb chunk at barley width (R={chunk['rows']}, S=65536)",
+            "bytes": chunk["bytes"], "int_ops": chunk["int_ops"],
+        }, None, {**{f"sachs_{key}_ms": sachs[key]["wide_ms"] for key in sachs},
+                  "hepar2_four_state_population_ms": four["fused"]["wide_ms"]}),
+        record("contingency_counts_family", family_main(
+            first, "narrow", "delta climb's first frontier at alarm width (" + shape.format(**first)
+            + ")"), None, {
+            "narrow_max_bins": sweep["rule"]["family"],
+            "library": "none: no one PyTorch call computes the cells and the counts",
+            "bincount_on_cells_ms": first["bincount_ms"], "cells_ms": first["cells_ms"],
+            "cells_seg_ms": first["cells_seg_ms"],
+            "family_refresh": family["refresh"], "family_final_refresh": family["final"],
+            "family_full_chunk": family["full"], "link_family": tier["family_seg"],
+            "hepar2_four_state_family": four["family_seg"], "route_sweep": swept("family"),
+        }),
+        record("contingency_counts_family_wide", family_main(
+            wide_first, "wide", "delta climb's first frontier at barley width ("
+            + shape.format(**wide_first) + ")"), None, {
+            "library": "none: no one PyTorch call computes the cells and the counts",
+            "bincount_on_cells_ms": wide_first["bincount_ms"], "cells_ms": wide_first["cells_ms"],
+            "cells_seg_ms": wide_first["cells_seg_ms"],
+            "family_full_chunk": wide["family_seg"]["full"],
+            "hepar2_four_state_ms": {k: v["family_wide_ms"] for k, v in four["family_seg"].items()},
+        }),
+        record("contingency_counts", {
+            "max_abs_err": max(er["err_seg"], decoded["err_seg"], *errs["seg"]),
+            "ms": first["seg_narrow_ms"], "plain_ms": first["seg_plain_ms"],
+            "bound_ms": first["seg_bound"]["bound_ms"], "bound_by": first["seg_bound"]["bound_by"],
+            "inputs": "cells of the delta climb's first frontier at alarm width ("
+                      + shape.format(**first) + "), timing calls only",
+            "bytes": first["seg_bound"]["bytes"], "int_ops": first["seg_bound"]["int_ops"],
         }, first["bincount_ms"], {
-            "family_refresh": family["refresh"],
-            "family_final_refresh": family["final"],
-            "family_full_chunk": family["full"],
+            "narrow_max_bins": sweep["rule"]["seg"],
+            "ms_er": er["seg_ms"], "plain_ms_er": er["seg_plain_ms"],
+            "bound_ms_er": er["seg_bound_ms"], "library_ms_er": er["bincount_ms"],
             "ms_decoded": decoded["seg_ms"], "plain_ms_decoded": decoded["seg_plain_ms"],
             "bound_ms_decoded": decoded["seg_bound_ms"], "library_ms_decoded": decoded["bincount_ms"],
-            "library_ms_er": er["bincount_ms"],
-            "link_family_seg": tier["family_seg"],
-            "hepar2_four_state_family_seg": four["family_seg"],
+            "route_sweep": swept("seg"),
         }),
-    ] + wide_records
+        record("contingency_counts_wide", {
+            "max_abs_err": max(errs["seg"]), "ms": wide_first["seg_wide_ms"],
+            "plain_ms": wide_first["seg_plain_ms"], "bound_ms": wide_first["seg_bound"]["bound_ms"],
+            "bound_by": wide_first["seg_bound"]["bound_by"],
+            "inputs": "cells of the delta climb's first frontier at barley width ("
+                      + shape.format(**wide_first) + "), timing calls only",
+            "bytes": wide_first["seg_bound"]["bytes"], "int_ops": wide_first["seg_bound"]["int_ops"],
+        }, wide_first["bincount_ms"], {
+            "hepar2_four_state_ms": {k: v["seg_wide_ms"] for k, v in four["family_seg"].items()},
+        }),
+    ]
 
 
 def main() -> int:
@@ -2795,6 +3057,9 @@ def main() -> int:
     )
 
     er = phase_kernels(torch, cfg, scorer, clock_hz)
+    t_sweep = time.perf_counter()
+    sweep = phase_route_sweep(torch)
+    print(f"route sweep {time.perf_counter() - t_sweep:.1f} s")
     phase_card_vs_cpu(torch, cfg, scorer, dataset)
     phase_train_card_vs_cpu(torch)
     search, decoded = phase_search(torch, cfg, scorer, clock_hz)
@@ -2823,12 +3088,13 @@ def main() -> int:
         **{f"stage_{name}": info["launches"] for name, info in stage["steps"].items()},
         **{f"pipeline_{name}": info["launches"] for name, info in pipeline["stages"].items()},
     }
-    # rows of 512 bins: the narrow kernels ran, the wide ones never did
+    # rows of 512 bins: the narrow fused and family kernels ran, no path
+    # called the seg entry, and no wide kernel ran
     narrow_total = {k: sum(p[k] for p in launches_by_path.values()) for k in KERNELS}
-    check(narrow_total["contingency_counts_fused"] > 0 and narrow_total["contingency_counts"] > 0
-          and narrow_total["contingency_counts_fused_wide"] == 0
-          and narrow_total["contingency_counts_wide"] == 0,
-          f"phases 1-10 launches {narrow_total}")
+    check(narrow_total["contingency_counts_fused"] > 0
+          and narrow_total["contingency_counts_family"] > 0
+          and sum(narrow_total.values()) == narrow_total["contingency_counts_fused"]
+          + narrow_total["contingency_counts_family"], f"phases 1-10 launches {narrow_total}")
 
     t_wide = time.perf_counter()
     wide = phase_wide_rows(torch, scorer, clock_hz)
@@ -2860,7 +3126,7 @@ def main() -> int:
     launches_by_path.update({k: v["launches"] for k, v in large["steps"].items()})
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernel_records(er, decoded, stage, wide, tier, small, large,
-                                                launches_by_path)}))
+                                                sweep, launches_by_path)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

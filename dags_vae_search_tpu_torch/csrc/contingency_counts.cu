@@ -2,28 +2,39 @@
 //
 // Replaces: dags_vae_search_tpu/ops/bic_pallas.py::_counts_kernel, the TPU
 // kernel launched by contingency_counts_pallas, together with the
-// configuration product that feeds it there (bic_pallas.py:108-121).  For
-// every row r = (candidate b, node i) both entries compute the weighted
+// configuration product that feeds it there (bic_pallas.py:108-121) or in
+// the family scorer (dags_vae_search_tpu/scoring/family_batch.py:129-159,
+// whose counts XLA's segment_sum takes under the same contract,
+// bic_pallas.py:46-83).  For every row r the entries compute the weighted
 // histogram
 //
 //     out[r, s] = sum_u w[u] * [cell(r, u) == s],   s in [0, S = q_cap * r_max)
 //
 // over the U unique dataset rows, with w[u] the row's multiplicity and
 //
-//     cell(r, u) = min(cfg, q_cap - 1) * r_max + codes[u, i],
-//     cfg        = sum_m stride[b, m, i] * codes[u, m].
+//     cell(r, u) = min(cfg, q_cap - 1) * r_max + codes[u, child(r)],
+//     cfg        = sum_p stride(r, p) * codes[u, parent(r, p)].
 //
-// - contingency_counts_fused_kernel computes cell itself from the strides and
-//   the column-major codes; the [B, n, U] cell table is never written.
-// - contingency_counts_kernel takes the cell table (seg) ready-made: the
-//   one-to-one counterpart of the Pallas kernel's contract.
-// Cells outside the row's range (padding sentinels) are skipped.
+// - The fused entry: row r = (candidate b, node i), child i, the parents and
+//   strides read from the strides stride[b, m, i] (bic_pallas.py:108-121).
+// - The family entry: row r = family f, child children[f], parents the
+//   filled slots of parents[f, :] (padded with -1 anywhere), the stride of
+//   slot p the product of the cards of the filled slots before it.
+// - The seg entry (contingency_counts_kernel) takes the cell table ready-made:
+//   the one-to-one counterpart of the Pallas kernel's contract.
+// The fused and family entries compute cell themselves from the column-major
+// codes, so the [R, U] cell table is never written; they share one counting
+// core and differ only in how a row's parent list is built.  Cells outside
+// the row's range (padding sentinels) are skipped.
 //
 // Bound.  The fused entry reads the strides (B*n*n f32), the codes (n*U
 // bytes, L2-resident) and w, and writes R*S f32 counts: at the alarm search
 // shape about 167 MB, 0.05 ms at 3.35 TB/s.  Its integer work, about
-// U * (parents + 2) operations per row, is the larger bound there.  The seg
-// entry reads R*U int32 cells and is bound by those bytes.
+// U * (parents + 2) operations per row, is the larger bound there.  The
+// family entry reads F*(P+1) int32 of families and writes F*S f32 counts;
+// its integer work is F*U*(P+2): the work bounds it at binary widths (S =
+// 512), the counts it writes at S >= 12,288.  The seg entry reads R*U int32
+// cells and is bound by those bytes.
 //
 // Design.  The TPU kernel turns counting into a dense [U, S] compare-select
 // because its vector unit has no scatter.  Here one warp owns one row at a
@@ -34,12 +45,19 @@
 //   order of integer adds is exact.  Converted to float on the way out, the
 //   counts equal the plain float scatter-add bit for bit while every bin
 //   stays below 2^24.
-// - Strides are compacted per row into a parent list (offset, stride), each
-//   stride saturated at q_cap.  Every term is non-negative and a saturated
-//   term with a nonzero code already gives cfg >= q_cap, so
-//   min(cfg, q_cap - 1) equals the clip of the exact product: int32 math
-//   gives the plain path's cells exactly, with no float product to keep out
-//   of TF32.
+// - A row's parents are compacted into a list (offset, stride), each stride
+//   saturated at q_cap.  Every term is non-negative and a saturated term with
+//   a nonzero code already gives cfg >= q_cap, so min(cfg, q_cap - 1) equals
+//   the clip of the exact product: int32 math gives the plain path's cells
+//   exactly, with no float product to keep out of TF32.  For a family the
+//   strides are a saturating product scan over the warp's lanes (lane p holds
+//   slot p; saturation commutes with the product of factors >= 0, so any
+//   grouping of the scan gives min(product, q_cap)).  The plain version's
+//   float32 cumprod and float32 sum (family_batch.py) give the same clipped
+//   cells: below q_cap every product and sum is an integer under 2^24, exact
+//   in float32, and at or above it the float value stays above q_cap - 1
+//   while q_cap * P < 2^23 and the product of a family's cards is finite in
+//   float32 (below 2^128).
 // - A row whose reachable cells all lie below small_span (few parents, few
 //   levels: binary data sends a node with k parents to 2^(k+1) cells) gets
 //   one private sub-histogram per lane, laid out lane-minor (bin s of lane l
@@ -51,14 +69,18 @@
 //   their uint8 codes of one parent column (one 16-byte load for int32).
 // - All S bins are written, zeros included, with float4 stores when S % 4 == 0.
 //
-// Wide rows.  A row whose S bins do not fit one warp's share of a block
-// (S > 58,112, e.g. q_cap 4,096 x 16 states) takes the wide kernels, one per
-// entry, with the same contract.  They tile S over blocks: a block owns one
-// (row, tile) pair, all of its warps scan the row's U cells and add those
-// that fall in the tile to one shared histogram (shared integer atomics, as
-// above), then the block stores the tile.  The fused wide kernel recomputes
-// the row's configurations for every tile; that integer work is small beside
-// the output it writes, R*S*4 bytes, which bounds this route.
+// Wide rows.  Each entry has a wide kernel with the same contract, which
+// ops/bic_kernel.py::route picks past the crossover measured on the H100
+// (rows of more than 2,048 bins for the fused entry and 512 for the others;
+// always past 58,112 bins, where one warp's bins no longer fit a block).
+// The narrow kernel loses there because a warp zeroes, scans and stores a
+// whole row alone while few warps fit an SM.  The wide kernels tile S
+// over blocks: a block owns one (row, tile) pair, all of its warps scan the
+// row's U cells and add those that fall in the tile to one shared histogram
+// (shared integer atomics, as above), then the block stores the tile.  The
+// fused and family wide kernels recompute the row's configurations for
+// every tile; that integer work is small beside the output they write,
+// R*S*4 bytes, which bounds this route.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -67,6 +89,7 @@ namespace {
 
 constexpr int kWarp = 32;
 constexpr int kMaxWarps = 8;
+constexpr unsigned kFull = 0xffffffffu;
 // Most dynamic shared memory one block can take on Hopper (227 KB).
 constexpr int kMaxSharedBytes = 232448;
 // The wide kernels: threads per block and the most bins of one tile (64 KB,
@@ -76,7 +99,7 @@ constexpr int kWideTileBins = 16384;
 
 __host__ __device__ __forceinline__ int round_up4(int x) { return (x + 3) & ~3; }
 
-// ---- the histogram core, shared by both entries ---------------------------
+// ---- the histogram core, shared by every entry -----------------------------
 
 // Zero `words` (a multiple of 4) 32-bit words at the 16-byte aligned `p`.
 __device__ __forceinline__ void warp_zero(uint32_t* p, int words, int lane) {
@@ -170,7 +193,7 @@ contingency_counts_kernel(const uint32_t* __restrict__ w, const int32_t* __restr
   warp_store_bins(hist, out + row * static_cast<int64_t>(S), S, lane);
 }
 
-// ---- the fused entry ------------------------------------------------------
+// ---- rows that compute their own cells: the fused and the family entry ----
 
 // Four consecutive codes of one column from one aligned load: 32 bits of
 // uint8 codes or 128 bits of int32 codes.
@@ -197,14 +220,97 @@ struct Codes4<int32_t> {
   }
 };
 
+// Geometry shared by both row kinds: codes_cm is Code[n, ldc], column m of
+// the unique rows, zero beyond U.
+struct Layout {
+  int U, ldc, q_cap, r_max;
+};
+
+// The fused entry's rows: row r = b*n + i of strides_t f32[R, n], which holds
+// stride[b, m, i] at m; child i; a parent list of up to n entries.
+struct StrideRows {
+  const float* strides_t;
+  int n;
+
+  __host__ __device__ int list_len() const { return n; }
+  __device__ __forceinline__ int child(int64_t row) const { return static_cast<int>(row % n); }
+
+  // Called by all 32 lanes of one warp: the row's parent list (element offset
+  // of the parent's column, stride saturated at q_cap) in `parents`; returns
+  // its length and gives every lane `reach`, a bound on the row's cfg.
+  __device__ __forceinline__ int parent_list(int64_t row, const Layout& g, int2* parents,
+                                             int lane, int* reach) const {
+    const float* srow = strides_t + row * n;
+    int count = 0, r = 0;
+    for (int base = 0; base < n; base += kWarp) {
+      const int m = base + lane;
+      const float s = m < n ? srow[m] : 0.0f;
+      const bool is_parent = s > 0.0f;
+      const unsigned mask = __ballot_sync(kFull, is_parent);
+      if (is_parent) {
+        // s * (r_max - 1) < q_cap * r_max = S, so no product here overflows
+        const int sat = s >= static_cast<float>(g.q_cap) ? g.q_cap : static_cast<int>(s);
+        parents[count + __popc(mask & ((1u << lane) - 1u))] = make_int2(m * g.ldc, sat);
+        r = min(r + sat * (g.r_max - 1), g.q_cap);
+      }
+      count += __popc(mask);
+    }
+#pragma unroll
+    for (int off = kWarp / 2; off > 0; off /= 2) r += __shfl_xor_sync(kFull, r, off);
+    *reach = r;
+    return count;
+  }
+};
+
+// The family entry's rows: family f, child children[f], parent slots
+// slots[f, 0:P] (P <= 32; -1, or any negative, is an empty slot) of
+// variables with cards[m] levels.
+struct FamilyRows {
+  const int32_t* children;
+  const int32_t* slots;
+  const int32_t* cards;
+  int P;
+
+  __host__ __device__ int list_len() const { return P; }
+  __device__ __forceinline__ int child(int64_t row) const { return __ldg(children + row); }
+
+  // As StrideRows::parent_list.  Lane p holds slot p; the stride of a filled
+  // slot is the product of the cards of the filled slots before it, as a
+  // saturating inclusive scan over the lanes shifted by one.
+  __device__ __forceinline__ int parent_list(int64_t row, const Layout& g, int2* parents,
+                                             int lane, int* reach) const {
+    const int m = lane < P ? __ldg(slots + row * P + lane) : -1;
+    const bool filled = m >= 0;
+    int prod = filled ? min(__ldg(cards + m), g.q_cap) : 1;
+#pragma unroll
+    for (int off = 1; off < kWarp; off *= 2) {
+      const int up = __shfl_up_sync(kFull, prod, off);
+      if (lane >= off) {
+        prod = static_cast<int>(min(static_cast<long long>(prod) * up,
+                                    static_cast<long long>(g.q_cap)));
+      }
+    }
+    int stride = __shfl_up_sync(kFull, prod, 1);
+    if (lane == 0) stride = 1;
+    const unsigned mask = __ballot_sync(kFull, filled);
+    if (filled) parents[__popc(mask & ((1u << lane) - 1u))] = make_int2(m * g.ldc, stride);
+    // stride <= q_cap, so each term is below S and the sum below P * S < 2^31
+    int r = filled ? stride * (g.r_max - 1) : 0;
+#pragma unroll
+    for (int off = kWarp / 2; off > 0; off /= 2) r += __shfl_xor_sync(kFull, r, off);
+    *reach = r;
+    return __popc(mask);
+  }
+};
+
 // Count one row: parents[p] = (element offset of parent column p, saturated
 // stride); cells at or above `bound` are skipped.
 template <bool kLaneMinor, typename Code>
 __device__ __forceinline__ void count_row(const int2* parents, int num_parents,
                                           const Code* codes_cm, const Code* child_col,
-                                          const uint32_t* w, int U, int q_cap, int r_max,
-                                          uint32_t* hist, int bound, int lane) {
-  for (int u0 = 4 * lane; u0 < U; u0 += 4 * kWarp) {
+                                          const uint32_t* w, const Layout& g, uint32_t* hist,
+                                          int bound, int lane) {
+  for (int u0 = 4 * lane; u0 < g.U; u0 += 4 * kWarp) {
     int cfg[4] = {0, 0, 0, 0};
 #pragma unroll 2
     for (int p = 0; p < num_parents; ++p) {
@@ -216,8 +322,8 @@ __device__ __forceinline__ void count_row(const int2* parents, int num_parents,
     const Codes4<Code> child(child_col + u0);
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      if (u0 + j < U) {
-        const int cell = min(cfg[j], q_cap - 1) * r_max + child[j];
+      if (u0 + j < g.U) {
+        const int cell = min(cfg[j], g.q_cap - 1) * g.r_max + child[j];
         const uint32_t wu = __ldg(w + u0 + j);
         if (kLaneMinor) {
           if (static_cast<unsigned>(cell) < static_cast<unsigned>(bound)) {
@@ -231,61 +337,41 @@ __device__ __forceinline__ void count_row(const int2* parents, int num_parents,
   }
 }
 
-// strides_t: f32[R, n], row r = b*n + i holding stride[b, m, i] at m.
-// codes_cm: Code[n, ldc], column m of the unique rows, zero beyond U.
+// The narrow route: one warp a row, its histogram in the warp's region of
+// shared memory (region_words words), then its parent list (list_len int2).
 // At most 40 registers, so 6 blocks of 8 warps fit an SM (64 registers held
-// it to 4 and cost more time than the spill-free cap does).
-template <typename Code>
+// the fused kernel to 4 and cost more time than the spill-free cap does).
+template <typename Rows, typename Code>
 __global__ void __launch_bounds__(kMaxWarps * kWarp, 6)
-contingency_counts_fused_kernel(const float* __restrict__ strides_t,
-                                const Code* __restrict__ codes_cm,
-                                const uint32_t* __restrict__ w, float* __restrict__ out,
-                                int64_t R, int n, int U, int ldc, int q_cap, int r_max,
-                                int region_words, int small_span) {
+contingency_counts_rows_kernel(Rows rows, const Code* __restrict__ codes_cm,
+                               const uint32_t* __restrict__ w, float* __restrict__ out,
+                               int64_t R, Layout g, int region_words, int small_span) {
   extern __shared__ __align__(16) uint32_t smem[];
   const int warps = blockDim.x / kWarp;
   const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
   const int64_t row = static_cast<int64_t>(blockIdx.x) * warps + warp;
   if (row >= R) return;  // whole warps leave; no block barrier follows
   uint32_t* hist = smem + warp * region_words;
-  int2* parents = reinterpret_cast<int2*>(smem + warps * region_words) + warp * n;
+  int2* parents = reinterpret_cast<int2*>(smem + warps * region_words) + warp * rows.list_len();
 
-  // Compact the row's parents; `reach` bounds the configuration they can form.
-  const float* srow = strides_t + row * n;
-  int num_parents = 0, reach = 0;
-  for (int base = 0; base < n; base += kWarp) {
-    const int m = base + lane;
-    const float s = m < n ? srow[m] : 0.0f;
-    const bool is_parent = s > 0.0f;
-    const unsigned mask = __ballot_sync(0xffffffffu, is_parent);
-    if (is_parent) {
-      // s * (r_max - 1) < q_cap * r_max = S, so no product here overflows
-      const int sat = s >= static_cast<float>(q_cap) ? q_cap : static_cast<int>(s);
-      parents[num_parents + __popc(mask & ((1u << lane) - 1u))] = make_int2(m * ldc, sat);
-      reach = min(reach + sat * (r_max - 1), q_cap);
-    }
-    num_parents += __popc(mask);
-  }
-#pragma unroll
-  for (int off = kWarp / 2; off > 0; off /= 2) reach += __shfl_xor_sync(0xffffffffu, reach, off);
+  int reach;
+  const int num_parents = rows.parent_list(row, g, parents, lane, &reach);
   // every cell of this row lies below span
-  const int span = (min(reach, q_cap - 1) + 1) * r_max;
-  const int S = q_cap * r_max;
-  const Code* child_col = codes_cm + static_cast<int64_t>(row % n) * ldc;
+  const int span = (min(reach, g.q_cap - 1) + 1) * g.r_max;
+  const int S = g.q_cap * g.r_max;
+  const Code* child_col = codes_cm + static_cast<int64_t>(rows.child(row)) * g.ldc;
   float* out_row = out + row * static_cast<int64_t>(S);
 
   if (span <= small_span) {
     warp_zero(hist, span * kWarp, lane);
     __syncwarp();
-    count_row<true>(parents, num_parents, codes_cm, child_col, w, U, q_cap, r_max, hist, span,
-                    lane);
+    count_row<true>(parents, num_parents, codes_cm, child_col, w, g, hist, span, lane);
     __syncwarp();
     warp_store_lane_minor(hist, span, out_row, S, lane);
   } else {
     warp_zero(hist, round_up4(S), lane);
     __syncwarp();
-    count_row<false>(parents, num_parents, codes_cm, child_col, w, U, q_cap, r_max, hist, S,
-                     lane);
+    count_row<false>(parents, num_parents, codes_cm, child_col, w, g, hist, S, lane);
     __syncwarp();
     warp_store_bins(hist, out_row, S, lane);
   }
@@ -341,53 +427,40 @@ contingency_counts_wide_kernel(const uint32_t* __restrict__ w, const int32_t* __
   block_store_bins(smem, out + row * static_cast<int64_t>(S) + t0, len, (S & 3) == 0);
 }
 
-// strides_t, codes_cm: as contingency_counts_fused_kernel.  Shared memory:
-// round_up4(tile) bins, then the row's parent list (n int2).
-template <typename Code>
+// The wide route of rows that compute their own cells.  Shared memory:
+// round_up4(tile) bins, then the row's parent list (list_len int2), built
+// by warp 0.
+template <typename Rows, typename Code>
 __global__ void __launch_bounds__(kWideThreads)
-contingency_counts_fused_wide_kernel(const float* __restrict__ strides_t,
-                                     const Code* __restrict__ codes_cm,
-                                     const uint32_t* __restrict__ w, float* __restrict__ out,
-                                     int n, int U, int ldc, int q_cap, int r_max, int tile,
-                                     int tiles) {
+contingency_counts_rows_wide_kernel(Rows rows, const Code* __restrict__ codes_cm,
+                                    const uint32_t* __restrict__ w, float* __restrict__ out,
+                                    Layout g, int tile, int tiles) {
   extern __shared__ __align__(16) uint32_t smem[];
   __shared__ int num_parents;
   uint32_t* hist = smem;
   int2* parents = reinterpret_cast<int2*>(smem + round_up4(tile));
   const int64_t row = static_cast<int64_t>(blockIdx.x) / tiles;
   const int t0 = static_cast<int>(blockIdx.x % tiles) * tile;
-  const int S = q_cap * r_max;
+  const int S = g.q_cap * g.r_max;
   const int len = min(tile, S - t0);
 
-  // warp 0 compacts the row's parents (offset, stride saturated at q_cap)
   if (threadIdx.x < kWarp) {
-    const int lane = threadIdx.x;
-    const float* srow = strides_t + row * n;
-    int count = 0;
-    for (int base = 0; base < n; base += kWarp) {
-      const int m = base + lane;
-      const float s = m < n ? srow[m] : 0.0f;
-      const unsigned mask = __ballot_sync(0xffffffffu, s > 0.0f);
-      if (s > 0.0f) {
-        const int sat = s >= static_cast<float>(q_cap) ? q_cap : static_cast<int>(s);
-        parents[count + __popc(mask & ((1u << lane) - 1u))] = make_int2(m * ldc, sat);
-      }
-      count += __popc(mask);
-    }
-    if (lane == 0) num_parents = count;
+    int reach;
+    const int count = rows.parent_list(row, g, parents, threadIdx.x, &reach);
+    if (threadIdx.x == 0) num_parents = count;
   }
   block_zero(hist, round_up4(len));
   __syncthreads();
 
   const int np = num_parents;
-  const Code* child_col = codes_cm + static_cast<int64_t>(row % n) * ldc;
-  for (int u = threadIdx.x; u < U; u += blockDim.x) {
-    int cfg = 0;  // below n * S < 2^31: every term is below S
+  const Code* child_col = codes_cm + static_cast<int64_t>(rows.child(row)) * g.ldc;
+  for (int u = threadIdx.x; u < g.U; u += blockDim.x) {
+    int cfg = 0;  // below list_len * S < 2^31: every term is below S
     for (int p = 0; p < np; ++p) {
       const int2 par = parents[p];
       cfg += par.y * static_cast<int>(__ldg(codes_cm + par.x + u));
     }
-    const int cell = min(cfg, q_cap - 1) * r_max + static_cast<int>(__ldg(child_col + u));
+    const int cell = min(cfg, g.q_cap - 1) * g.r_max + static_cast<int>(__ldg(child_col + u));
     tile_add(hist, cell, t0, len, __ldg(w + u));
   }
   __syncthreads();
@@ -421,46 +494,71 @@ cudaError_t allow_shared(Kernel kernel, size_t smem) {
                               static_cast<int>(smem));
 }
 
-template <typename Code>
-int launch_fused(const void* strides_t, const void* codes_cm, const void* w, void* out,
-                 int64_t R, int n, int U, int ldc, int q_cap, int r_max, int small_span,
-                 cudaStream_t stream) {
-  const int S = q_cap * r_max;
+template <typename Rows, typename Code>
+int launch_rows(const Rows& rows, const void* codes_cm, const void* w, void* out, int64_t R,
+                const Layout& g, int small_span, cudaStream_t stream) {
+  const int S = g.q_cap * g.r_max;
   const int lane_minor_words = kWarp * (small_span < S ? small_span : S);
   const int region_words = round_up4(S > lane_minor_words ? S : lane_minor_words);
-  const int warps = warps_for(region_words * 4 + n * static_cast<int>(sizeof(int2)));
+  const int list_bytes = rows.list_len() * static_cast<int>(sizeof(int2));
+  const int warps = warps_for(region_words * 4 + list_bytes);
   if (warps == 0) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = static_cast<size_t>(warps) * (region_words * 4 + n * sizeof(int2));
-  cudaError_t err = allow_shared(contingency_counts_fused_kernel<Code>, smem);
+  const size_t smem = static_cast<size_t>(warps) * (region_words * 4 + list_bytes);
+  cudaError_t err = allow_shared(contingency_counts_rows_kernel<Rows, Code>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int64_t blocks = (R + warps - 1) / warps;
-  contingency_counts_fused_kernel<Code><<<static_cast<unsigned>(blocks), warps * kWarp, smem,
-                                          stream>>>(
-      static_cast<const float*>(strides_t), static_cast<const Code*>(codes_cm),
-      static_cast<const uint32_t*>(w), static_cast<float*>(out), R, n, U, ldc, q_cap, r_max,
-      region_words, small_span);
+  contingency_counts_rows_kernel<Rows, Code><<<static_cast<unsigned>(blocks), warps * kWarp,
+                                               smem, stream>>>(
+      rows, static_cast<const Code*>(codes_cm), static_cast<const uint32_t*>(w),
+      static_cast<float*>(out), R, g, region_words, small_span);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename Code>
-int launch_fused_wide(const void* strides_t, const void* codes_cm, const void* w, void* out,
-                      int64_t R, int n, int U, int ldc, int q_cap, int r_max,
-                      cudaStream_t stream) {
+template <typename Rows, typename Code>
+int launch_rows_wide(const Rows& rows, const void* codes_cm, const void* w, void* out,
+                     int64_t R, const Layout& g, cudaStream_t stream) {
   int tile, tiles;
-  wide_tiles(q_cap * r_max, &tile, &tiles);
+  wide_tiles(g.q_cap * g.r_max, &tile, &tiles);
   const int64_t blocks = wide_blocks(R, tiles);
-  const size_t smem = static_cast<size_t>(round_up4(tile)) * 4 + n * sizeof(int2);
+  const size_t smem = static_cast<size_t>(round_up4(tile)) * 4 + rows.list_len() * sizeof(int2);
   if (blocks == 0 || smem > static_cast<size_t>(kMaxSharedBytes)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  cudaError_t err = allow_shared(contingency_counts_fused_wide_kernel<Code>, smem);
+  cudaError_t err = allow_shared(contingency_counts_rows_wide_kernel<Rows, Code>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  contingency_counts_fused_wide_kernel<Code><<<static_cast<unsigned>(blocks), kWideThreads, smem,
-                                               stream>>>(
-      static_cast<const float*>(strides_t), static_cast<const Code*>(codes_cm),
-      static_cast<const uint32_t*>(w), static_cast<float*>(out), n, U, ldc, q_cap, r_max, tile,
-      tiles);
+  contingency_counts_rows_wide_kernel<Rows, Code><<<static_cast<unsigned>(blocks), kWideThreads,
+                                                    smem, stream>>>(
+      rows, static_cast<const Code*>(codes_cm), static_cast<const uint32_t*>(w),
+      static_cast<float*>(out), g, tile, tiles);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Either route for uint8 (code_bytes 1) or int32 (code_bytes 4) codes;
+// small_span < 0 asks for the wide route.
+template <typename Rows>
+int launch_any(const Rows& rows, const void* codes_cm, int code_bytes, const void* w, void* out,
+               int64_t R, const Layout& g, int small_span, cudaStream_t stream) {
+  const bool wide = small_span < 0;
+  if (code_bytes == 1) {
+    return wide ? launch_rows_wide<Rows, uint8_t>(rows, codes_cm, w, out, R, g, stream)
+                : launch_rows<Rows, uint8_t>(rows, codes_cm, w, out, R, g, small_span, stream);
+  }
+  if (code_bytes == 4) {
+    return wide ? launch_rows_wide<Rows, int32_t>(rows, codes_cm, w, out, R, g, stream)
+                : launch_rows<Rows, int32_t>(rows, codes_cm, w, out, R, g, small_span, stream);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+int launch_family(const void* children, const void* parents, const void* cards,
+                  const void* codes_cm, int code_bytes, const void* w, void* out, int64_t F,
+                  int P, int U, int ldc, int q_cap, int r_max, int small_span, void* stream) {
+  if (P < 1 || P > kWarp) return static_cast<int>(cudaErrorInvalidValue);
+  const FamilyRows rows{static_cast<const int32_t*>(children),
+                        static_cast<const int32_t*>(parents), static_cast<const int32_t*>(cards),
+                        P};
+  return launch_any(rows, codes_cm, code_bytes, w, out, F, Layout{U, ldc, q_cap, r_max},
+                    small_span, static_cast<cudaStream_t>(stream));
 }
 
 }  // namespace
@@ -497,16 +595,9 @@ extern "C" int contingency_counts_fused_launch(const void* strides_t, const void
                                                int code_bytes, const void* w, void* out,
                                                int64_t R, int n, int U, int ldc, int q_cap,
                                                int r_max, int small_span, void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (code_bytes == 1) {
-    return launch_fused<uint8_t>(strides_t, codes_cm, w, out, R, n, U, ldc, q_cap, r_max,
-                                 small_span, s);
-  }
-  if (code_bytes == 4) {
-    return launch_fused<int32_t>(strides_t, codes_cm, w, out, R, n, U, ldc, q_cap, r_max,
-                                 small_span, s);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
+  return launch_any(StrideRows{static_cast<const float*>(strides_t), n}, codes_cm, code_bytes, w,
+                    out, R, Layout{U, ldc, q_cap, r_max}, small_span < 0 ? 0 : small_span,
+                    static_cast<cudaStream_t>(stream));
 }
 
 // The wide route of the seg entry: the contract of contingency_counts_launch
@@ -533,12 +624,31 @@ extern "C" int contingency_counts_fused_wide_launch(const void* strides_t, const
                                                     int code_bytes, const void* w, void* out,
                                                     int64_t R, int n, int U, int ldc, int q_cap,
                                                     int r_max, void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (code_bytes == 1) {
-    return launch_fused_wide<uint8_t>(strides_t, codes_cm, w, out, R, n, U, ldc, q_cap, r_max, s);
-  }
-  if (code_bytes == 4) {
-    return launch_fused_wide<int32_t>(strides_t, codes_cm, w, out, R, n, U, ldc, q_cap, r_max, s);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
+  return launch_any(StrideRows{static_cast<const float*>(strides_t), n}, codes_cm, code_bytes, w,
+                    out, R, Layout{U, ldc, q_cap, r_max}, -1, static_cast<cudaStream_t>(stream));
+}
+
+// The family entry.  children: int32[F] in [0, n); parents: int32[F, P],
+// 1 <= P <= 32, each in [0, n) or negative (an empty slot); cards: int32[n];
+// codes_cm, w: as contingency_counts_fused_launch (n rows of codes);
+// out: f32[F, q_cap*r_max].  Needs P * q_cap * r_max < 2^31 and n * ldc < 2^31.
+// Rows whose cells all lie below small_span take lane-private bins.
+extern "C" int contingency_counts_family_launch(const void* children, const void* parents,
+                                                const void* cards, const void* codes_cm,
+                                                int code_bytes, const void* w, void* out,
+                                                int64_t F, int P, int U, int ldc, int q_cap,
+                                                int r_max, int small_span, void* stream) {
+  return launch_family(children, parents, cards, codes_cm, code_bytes, w, out, F, P, U, ldc,
+                       q_cap, r_max, small_span < 0 ? 0 : small_span, stream);
+}
+
+// The wide route of the family entry: its contract for any S = q_cap*r_max
+// with F * ceil(S / 16384) blocks below 2^31.
+extern "C" int contingency_counts_family_wide_launch(const void* children, const void* parents,
+                                                     const void* cards, const void* codes_cm,
+                                                     int code_bytes, const void* w, void* out,
+                                                     int64_t F, int P, int U, int ldc, int q_cap,
+                                                     int r_max, void* stream) {
+  return launch_family(children, parents, cards, codes_cm, code_bytes, w, out, F, P, U, ldc,
+                       q_cap, r_max, -1, stream);
 }

@@ -1,24 +1,29 @@
 """Contingency counts through the hand-written CUDA kernels.
 
 Counterpart of ``dags_vae_search_tpu/ops/bic_pallas.py``.  The dataset is
-compressed to its U unique rows with multiplicities ``w``; every
-(candidate, node) row gets the flat cell
-``seg = clip(cfg, 0, q_cap-1) * r_max + child`` of each unique row, and its
-counts are the weighted histogram of ``seg`` over S = q_cap * r_max cells.
-Source of both kernels: ``csrc/contingency_counts.cu``.
+compressed to its U unique rows with multiplicities ``w``; every counted
+row gets the flat cell ``seg = clip(cfg, 0, q_cap-1) * r_max + child`` of
+each unique row, and its counts are the weighted histogram of ``seg`` over
+S = q_cap * r_max cells.  Source of every kernel:
+``csrc/contingency_counts.cu``.  Three entries:
 
 - :func:`contingency_counts_fused` computes the cells inside the kernel from
-  the parent strides and the column-major codes (:func:`column_major_codes`),
-  so the [B, n, U] cell table is never built.  :func:`contingency_counts`,
-  which ``BicScorer`` calls, goes through it.
+  the parent strides of (candidate, node) rows and the column-major codes
+  (:func:`column_major_codes`), so the [B, n, U] cell table is never built.
+  :func:`contingency_counts`, which ``BicScorer`` calls, goes through it.
+- :func:`contingency_counts_family` computes them inside the kernel from
+  (child, padded parent list) families, so the [F, U] cell table of
+  :func:`family_cells` is never built.  ``FamilyBatchScorer`` (the delta
+  climb's scorer) goes through it.
 - :func:`contingency_counts_kernel` takes the cell table ready-made, the
   one-to-one counterpart of the Pallas kernel's contract.
 
-Each entry has two routes, chosen by :func:`route`: rows whose S bins fit one
-warp's share of a block's shared memory take the narrow kernel (one warp per
-row), wider rows the wide kernel (S tiled over blocks,
-:func:`contingency_counts_wide` and :func:`contingency_counts_fused_wide`).
-Each route's wrapper counts its own launches in ``.launches``.
+Each entry has two routes, chosen by :func:`route`: one warp per row (the
+narrow kernel) for rows of at most ``NARROW_MAX_BINS`` bins, S tiled over
+blocks (the wide kernel: :func:`contingency_counts_wide`,
+:func:`contingency_counts_fused_wide`, :func:`contingency_counts_family_wide`)
+for wider rows.  Each route's wrapper counts its own launches in
+``.launches``.
 
 On a CUDA tensor each wrapper launches its kernel or raises; on a CPU tensor
 it runs its plain torch version (``*_plain``), which has no bound on S.  The
@@ -49,6 +54,13 @@ WIDE_TILE_BINS = 16_384
 #: fused kernel (binary data: nodes with up to 3 parents); others take
 #: shared atomics.  ``chip_smoke.py`` times the choices around it.
 SMALL_SPAN = 16
+#: Most parent slots of one family in the family entry (one lane each).
+MAX_FAMILY_SLOTS = 32
+#: Rows of at most this many bins take an entry's narrow kernel, wider rows
+#: its wide kernel: the crossover measured on the H100 by ``chip_smoke.py``'s
+#: route sweep at 698 and 5,000 unique rows (PERF.md); it moved no more than
+#: 2x between the two, so it does not follow U.
+NARROW_MAX_BINS = {"fused": 2048, "seg": 512, "family": 512}
 
 
 def _round_up(x: int, m: int) -> int:
@@ -123,7 +135,7 @@ def contingency_counts_kernel(w: torch.Tensor, seg: torch.Tensor, S: int) -> tor
     _check_seg(w, seg, S)
     if seg.device.type == "cpu":
         return contingency_counts_plain(w, seg, S)
-    if route(seg_warp_bytes(S)) == "wide":
+    if route("seg", S, seg_warp_bytes(S)) == "wide":
         return _launch_wide(w, seg, S)
     out = _launch(w, seg, S)
     contingency_counts_kernel.launches += 1
@@ -196,12 +208,22 @@ def fused_warp_bytes(S: int, n: int) -> int:
     return 4 * _round_up(max(S, 32 * min(SMALL_SPAN, S)), 4) + 8 * n
 
 
-def route(warp_bytes: int) -> str:
-    """The kernel for rows whose narrow kernel needs ``warp_bytes`` of
-    shared memory per warp (:func:`seg_warp_bytes`, :func:`fused_warp_bytes`):
-    ``"narrow"`` (one warp per row) when that fits a block, else ``"wide"``
-    (S tiled over blocks)."""
-    return "narrow" if warp_bytes <= MAX_SHARED_BYTES else "wide"
+def family_warp_bytes(S: int, P: int) -> int:
+    """Shared memory one warp of the narrow family kernel takes (as the
+    launcher computes it): the bins of :func:`fused_warp_bytes` and the
+    family's parent list of P slots."""
+    return fused_warp_bytes(S, 0) + 8 * P
+
+
+def route(entry: str, S: int, warp_bytes: int) -> str:
+    """The kernel for rows of S bins of ``entry`` ("fused", "seg" or
+    "family") whose narrow kernel needs ``warp_bytes`` of shared memory per
+    warp (:func:`fused_warp_bytes`, :func:`seg_warp_bytes`,
+    :func:`family_warp_bytes`): ``"narrow"`` (one warp per row) up to the
+    entry's ``NARROW_MAX_BINS`` while that fits a block, else ``"wide"`` (S
+    tiled over blocks)."""
+    fits = warp_bytes <= MAX_SHARED_BYTES
+    return "narrow" if S <= NARROW_MAX_BINS[entry] and fits else "wide"
 
 
 def _launch_fused(strides_t, codes_cm, w, q_cap, r_max, small_span=SMALL_SPAN, wide=False):
@@ -275,7 +297,8 @@ def contingency_counts_fused(
     _check_fused(strides_t, codes_cm, w, q_cap, r_max)
     if strides_t.device.type == "cpu":
         return contingency_counts_fused_plain(strides_t, codes_cm, w, q_cap, r_max)
-    if route(fused_warp_bytes(q_cap * r_max, strides_t.shape[1])) == "wide":
+    S = q_cap * r_max
+    if route("fused", S, fused_warp_bytes(S, strides_t.shape[1])) == "wide":
         return _launch_fused_wide(strides_t, codes_cm, w, q_cap, r_max)
     out = _launch_fused(strides_t, codes_cm, w, q_cap, r_max)
     contingency_counts_fused.launches += 1
@@ -304,6 +327,170 @@ def contingency_counts_fused_wide(
 
 
 contingency_counts_fused_wide.launches = 0
+
+
+# ---- the family entry ------------------------------------------------------
+
+
+def family_config_strides(parents: torch.Tensor, cards: torch.Tensor) -> tuple:
+    """Mixed-radix strides f32[F, P] of a family's parent slots (the
+    exclusive cumprod of the filled slots' cards, 0 in an empty slot) and
+    the configuration-space sizes q f32[F], in float32 as the JAX package
+    computes them.  parents: int32[F, P], negative = empty slot."""
+    n = cards.shape[0]
+    valid = parents >= 0
+    pcards = torch.where(valid, cards[(parents % n).long()], 1).to(torch.float32)
+    inclusive = torch.cumprod(pcards, dim=1)
+    exclusive = torch.cat([torch.ones_like(inclusive[:, :1]), inclusive[:, :-1]], dim=1)
+    return torch.where(valid, exclusive, 0.0), inclusive[:, -1]
+
+
+def family_cells(
+    children: torch.Tensor,  # int32[F]
+    parents: torch.Tensor,  # int32[F, P], negative = empty slot
+    codes: torch.Tensor,  # uint8 or int32 [n, U]: column_major_codes(...)[:, :U]
+    cards: torch.Tensor,  # int32[n]
+    q_cap: int,
+    r_max: int,
+) -> tuple:
+    """The family entry's cells without the kernel: the cell table seg
+    int32[F, U] (contiguous) and the config sizes q f32[F].  The
+    configurations are the JAX package's float32 product, accumulated slot
+    by slot so the peak intermediate is one [F, U] plane, then clipped."""
+    strides, q = family_config_strides(parents, cards)
+    pidx = torch.where(parents >= 0, parents, 0).long()  # stride 0 there
+    configs = torch.zeros((children.shape[0], codes.shape[1]), dtype=torch.float32,
+                          device=codes.device)
+    for p in range(parents.shape[1]):
+        configs = configs + strides[:, p : p + 1] * codes[pidx[:, p]].to(torch.float32)
+    configs = torch.clamp(configs, 0.0, float(q_cap - 1)).to(torch.int32)
+    return (configs * r_max + codes[children.long()].to(torch.int32)).contiguous(), q
+
+
+def contingency_counts_family_plain(children, parents, codes_cm, cards, w, q_cap, r_max):
+    """The family kernel's function in plain torch: :func:`family_cells`,
+    then :func:`contingency_counts_plain`.  -> f32[F, q_cap*r_max]."""
+    seg, _ = family_cells(children, parents, codes_cm[:, :w.shape[0]], cards, q_cap, r_max)
+    return contingency_counts_plain(w, seg, q_cap * r_max)
+
+
+def _check_family(children, parents, codes_cm, cards, w, q_cap, r_max) -> None:
+    if not (children.dtype == parents.dtype == cards.dtype == torch.int32):
+        raise TypeError(f"want int32 children, parents and cards, got {children.dtype}, "
+                        f"{parents.dtype}, {cards.dtype}")
+    if w.dtype != torch.float32:
+        raise TypeError(f"want float32 w, got {w.dtype}")
+    if codes_cm.dtype not in (torch.uint8, torch.int32):
+        raise TypeError(f"want uint8 or int32 codes, got {codes_cm.dtype}")
+    if children.dim() != 1 or parents.dim() != 2 or parents.shape[0] != children.shape[0] \
+            or cards.dim() != 1 or w.dim() != 1:
+        raise ValueError(f"want children [F], parents [F, P], cards [n] and w [U], got "
+                         f"{tuple(children.shape)}, {tuple(parents.shape)}, "
+                         f"{tuple(cards.shape)}, {tuple(w.shape)}")
+    (f, p), n, u = parents.shape, cards.shape[0], w.shape[0]
+    if not 1 <= p <= MAX_FAMILY_SLOTS:
+        raise ValueError(f"P={p} parent slots outside [1, {MAX_FAMILY_SLOTS}]")
+    if codes_cm.dim() != 2 or codes_cm.shape[0] != n or codes_cm.shape[1] < u \
+            or codes_cm.shape[1] % 16:
+        raise ValueError(f"want codes [n={n}, U16 >= {u}, U16 % 16 == 0], "
+                         f"got {tuple(codes_cm.shape)}")
+    if not (children.device == parents.device == codes_cm.device == cards.device == w.device):
+        raise ValueError(f"children, parents, codes, cards and w on {children.device}, "
+                         f"{parents.device}, {codes_cm.device}, {cards.device}, {w.device}")
+    S = q_cap * r_max
+    if q_cap < 1 or r_max < 1:
+        raise ValueError(f"q_cap={q_cap}, r_max={r_max} give no bins")
+    if f >= 2**31 or p * S >= 2**31 or n * codes_cm.shape[1] >= 2**31:
+        raise ValueError(f"F={f}, P={p}, S={S}, U16={codes_cm.shape[1]} outside the kernel's range")
+    if children.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no contingency kernel for device {children.device}")
+    if children.device.type == "cuda":
+        if f == 0:
+            raise ValueError("no families: the kernel's grid would be empty")
+        if not all(t.is_contiguous() for t in (children, parents, codes_cm, cards, w)):
+            raise ValueError("children, parents, codes, cards and w must be contiguous")
+        if codes_cm.data_ptr() % 16:
+            raise ValueError("codes must start on a 16-byte boundary")
+    if f:
+        # the kernel reads codes[child] and codes[parent] unchecked: one host read
+        lo_c, hi_c, hi_p = torch.stack([children.min(), children.max(), parents.max()]).tolist()
+        if lo_c < 0 or hi_c >= n or hi_p >= n:
+            raise ValueError(f"children in [{lo_c}, {hi_c}], parents up to {hi_p}: "
+                             f"outside [0, n={n})")
+
+
+def _launch_family(children, parents, codes_cm, cards, w, q_cap, r_max, small_span=SMALL_SPAN,
+                   wide=False):
+    f, p = parents.shape
+    head = [ctypes.c_void_p] * 4 + [ctypes.c_int] + [ctypes.c_void_p] * 2
+    ints = [ctypes.c_int64] + [ctypes.c_int] * 5
+    if wide:
+        name = "contingency_counts_family_wide_launch"
+        fn = _function(name, head + ints + [ctypes.c_void_p])
+        tail = ()
+    else:
+        name = "contingency_counts_family_launch"
+        fn = _function(name, head + ints + [ctypes.c_int, ctypes.c_void_p])
+        tail = (small_span,)
+    w_int = w.to(torch.int32)  # the kernel reads the multiplicities as uint32
+    out = torch.empty((f, q_cap * r_max), dtype=torch.float32, device=children.device)
+    with torch.cuda.device(children.device):
+        err = fn(
+            children.data_ptr(), parents.data_ptr(), cards.data_ptr(), codes_cm.data_ptr(),
+            codes_cm.element_size(), w_int.data_ptr(), out.data_ptr(), f, p, w.shape[0],
+            codes_cm.shape[1], q_cap, r_max, *tail, _stream(children),
+        )
+    if err != 0:
+        raise RuntimeError(f"{name.removesuffix('_launch')} kernel launch failed: cudaError {err}")
+    return out
+
+
+def contingency_counts_family(
+    children: torch.Tensor,  # int32[F] in [0, n)
+    parents: torch.Tensor,  # int32[F, P], P <= MAX_FAMILY_SLOTS, each < n; negative = empty slot
+    codes_cm: torch.Tensor,  # uint8 or int32 [n, U16] from column_major_codes
+    cards: torch.Tensor,  # int32[n]
+    w: torch.Tensor,  # float32[U] multiplicities
+    q_cap: int,
+    r_max: int,
+) -> torch.Tensor:
+    """Counts f32[F, q_cap*r_max] of every family straight from its parent
+    list: a CUDA kernel on a CUDA tensor (the narrow one, or the wide one
+    where :func:`route` says so), the plain version on a CPU tensor.  Codes
+    must lie in [0, r_max).  Raises on an index outside [0, n).
+    ``contingency_counts_family.launches`` counts launches of the narrow
+    kernel."""
+    _check_family(children, parents, codes_cm, cards, w, q_cap, r_max)
+    if children.device.type == "cpu":
+        return contingency_counts_family_plain(children, parents, codes_cm, cards, w, q_cap, r_max)
+    S = q_cap * r_max
+    if route("family", S, family_warp_bytes(S, parents.shape[1])) == "wide":
+        return _launch_family_wide(children, parents, codes_cm, cards, w, q_cap, r_max)
+    out = _launch_family(children, parents, codes_cm, cards, w, q_cap, r_max)
+    contingency_counts_family.launches += 1
+    return out
+
+
+contingency_counts_family.launches = 0
+
+
+def _launch_family_wide(children, parents, codes_cm, cards, w, q_cap, r_max) -> torch.Tensor:
+    out = _launch_family(children, parents, codes_cm, cards, w, q_cap, r_max, wide=True)
+    contingency_counts_family_wide.launches += 1
+    return out
+
+
+def contingency_counts_family_wide(children, parents, codes_cm, cards, w, q_cap, r_max):
+    """:func:`contingency_counts_family`'s function through the wide kernel
+    (any S) on a CUDA tensor, the plain version on a CPU tensor.
+    ``contingency_counts_family_wide.launches`` counts its launches."""
+    _check_family(children, parents, codes_cm, cards, w, q_cap, r_max)
+    if children.device.type == "cpu":
+        return contingency_counts_family_plain(children, parents, codes_cm, cards, w, q_cap, r_max)
+    return _launch_family_wide(children, parents, codes_cm, cards, w, q_cap, r_max)
+
+
+contingency_counts_family_wide.launches = 0
 
 
 def contingency_counts(

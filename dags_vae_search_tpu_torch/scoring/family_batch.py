@@ -6,17 +6,20 @@ single-edge structure move changes one or two family scores, so a hill
 climber at large n needs ``score(child, parents ∪ {x})`` for many (child, x)
 pairs, not full [B, n, n] candidate adjacencies.  Families are (child
 int32, parents int32[P] padded with -1).  Parent configuration codes are
-mixed-radix, computed by gathering the P parent columns of the U unique
-dataset rows (cost O(U · F · P)).
+mixed-radix over the P parent columns of the U unique dataset rows (cost
+O(U · F · P)).
 
-The counts are the seg entry of the contingency kernel
-(``ops/bic_kernel.py::contingency_counts_kernel``): F rows of cells
-``seg = clip(cfg, 0, q_cap-1) * r_max + child`` over the U unique rows,
-weighted by their multiplicities, S = q_cap * r_max bins.  On a CUDA tensor
-the wrapper launches the kernel (its wide route when S bins do not fit one
-warp's shared memory, e.g. q_cap 4,096 x 16 states) or raises; on a CPU
-tensor it runs its plain version.  A call writes F * S float32 counts: at
-S = 65,536 a chunk of 4,096 families is 1 GiB.
+The counts are the family entry of the contingency kernel
+(``ops/bic_kernel.py::contingency_counts_family``): each family's cells
+``clip(cfg, 0, q_cap-1) * r_max + child`` over the U unique rows are made
+inside the kernel from its parent list and counted there, weighted by their
+multiplicities, S = q_cap * r_max bins; the [F, U] cell table that JAX's
+``_score_families`` builds (:func:`family_cells`, kept as the plain
+version's first half) is never written.  On a CUDA tensor the wrapper
+launches the kernel (its wide route for rows of many bins, e.g. q_cap 4,096
+x 16 states) or raises; on a CPU tensor it runs its plain version.  A call
+writes F * S float32 counts: at S = 65,536 a chunk of 4,096 families is
+1 GiB.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ import numpy as np
 import torch
 
 from dags_vae_search_tpu_torch.ops import bic_kernel
+from dags_vae_search_tpu_torch.ops.bic_kernel import family_cells
 from dags_vae_search_tpu_torch.scoring.datasets import DiscreteDataset
 
 
@@ -57,11 +61,11 @@ class FamilyBatchScorer:
         self.num_cases = dataset.num_cases
 
         # Unique-row compression: counting work scales with distinct rows,
-        # the counts use the multiplicities.  A sentinel column (index n) of
-        # zeros makes parent slot -1 contribute stride 0 * code 0.
+        # the counts use the multiplicities.  The kernel reads the codes
+        # column-major, one column per variable.
         codes_u, weights = np.unique(dataset.codes, axis=0, return_counts=True)
-        codes_pad = np.concatenate([codes_u, np.zeros((codes_u.shape[0], 1), codes_u.dtype)], axis=1)
-        self._codes_pad = torch.as_tensor(codes_pad, dtype=torch.int32, device=self.device)
+        self._codes_cm = bic_kernel.column_major_codes(
+            torch.as_tensor(codes_u, dtype=torch.int32, device=self.device), r_max)
         self._weights = torch.as_tensor(weights, dtype=torch.float32, device=self.device)
         self._cards = torch.as_tensor(dataset.cards, dtype=torch.int32, device=self.device)
 
@@ -70,16 +74,18 @@ class FamilyBatchScorer:
                 torch.as_tensor(parents, dtype=torch.int32, device=self.device))
 
     def cells(self, children, parents) -> tuple:
-        """The cell table seg int32[F, U] and config sizes q float32[F] that
-        :meth:`score` counts."""
-        return family_cells(*self._families(children, parents), self._codes_pad, self._cards,
+        """The cell table seg int32[F, U] and config sizes q float32[F] of
+        the families :meth:`score` counts (the family entry's plain version
+        builds it; the kernel does not)."""
+        codes = self._codes_cm[:, :self._weights.shape[0]]
+        return family_cells(*self._families(children, parents), codes, self._cards,
                             self.q_cap, self.r_max)
 
     def score(self, children, parents) -> torch.Tensor:
         """children int32[F], parents int32[F, P] (pad = -1) -> float32[F]."""
         return _score_families(
             *self._families(children, parents),
-            self._codes_pad,
+            self._codes_cm,
             self._weights,
             self._cards,
             self.q_cap,
@@ -103,43 +109,10 @@ class FamilyBatchScorer:
         return np.concatenate(out) if out else np.empty(0, np.float32)
 
 
-def family_cells(
-    children: torch.Tensor,  # int32[F]
-    parents: torch.Tensor,  # int32[F, P], -1 = empty slot
-    codes_pad: torch.Tensor,  # int32[U, n+1] (last column zeros)
-    cards: torch.Tensor,  # int32[n]
-    q_cap: int,
-    r_max: int,
-):
-    """The seg entry's cell table ``seg`` int32[F, U] (contiguous) and the
-    configuration-space sizes q float32[F] of every family."""
-    n = cards.shape[0]
-    valid = parents >= 0
-    pidx = torch.where(valid, parents, n).long()  # sentinel column
-    pcards = torch.where(valid, cards[(parents % n).long()], 1).to(torch.float32)
-
-    # Mixed-radix strides over the P parent slots (exclusive cumprod), float32.
-    inclusive = torch.cumprod(pcards, dim=1)
-    exclusive = torch.cat([torch.ones_like(inclusive[:, :1]), inclusive[:, :-1]], dim=1)
-    strides = torch.where(valid, exclusive, 0.0)  # [F, P]
-    q = inclusive[:, -1]  # [F]
-
-    # configs[f, u] = sum_p strides[f, p] * codes[u, parent_fp], accumulated
-    # slot by slot in float32 so the peak intermediate is one [F, U] plane.
-    configs = torch.zeros((children.shape[0], codes_pad.shape[0]), dtype=torch.float32,
-                          device=codes_pad.device)
-    for p in range(parents.shape[1]):
-        configs = configs + strides[:, p : p + 1] * codes_pad[:, pidx[:, p]].T.to(torch.float32)
-    configs = torch.clamp(configs, 0.0, float(q_cap - 1)).to(torch.int32)
-
-    child_codes = codes_pad[:, children.long()].T  # [F, U]
-    return (configs * r_max + child_codes).contiguous(), q
-
-
 def _score_families(
     children: torch.Tensor,  # int32[F]
     parents: torch.Tensor,  # int32[F, P], -1 = empty slot
-    codes_pad: torch.Tensor,  # int32[U, n+1] (last column zeros)
+    codes_cm: torch.Tensor,  # uint8 or int32 [n, U16] column-major unique rows
     weights: torch.Tensor,  # float32[U] unique-row multiplicities
     cards: torch.Tensor,  # int32[n]
     q_cap: int,
@@ -147,9 +120,10 @@ def _score_families(
     num_cases: int,
     metric: str,
 ) -> torch.Tensor:
-    seg, q = family_cells(children, parents, codes_pad, cards, q_cap, r_max)
-    counts = bic_kernel.contingency_counts_kernel(weights, seg, q_cap * r_max)
+    counts = bic_kernel.contingency_counts_family(children, parents, codes_cm, cards, weights,
+                                                  q_cap, r_max)
     counts = counts.reshape(-1, q_cap, r_max)  # [F, Q, r]
+    _, q = bic_kernel.family_config_strides(parents, cards)
 
     n_j = counts.sum(dim=-1, keepdim=True)
     safe = counts > 0

@@ -79,20 +79,30 @@ def test_family_batch_matches_jax(case, max_parents, q_cap):
 
 
 def test_family_batch_counts_go_through_the_seg_entry(monkeypatch):
+    """The name is kept from when the seg entry counted a built cell table:
+    the counts now go through the family entry, one call per score, with
+    the families, the column-major codes and no [F, U] table."""
     _, tds = _problem(6, seed=5)
     scorer = tfb.FamilyBatchScorer(tds, max_parents=3, device="cpu")
     calls = []
-    plain = bic_kernel.contingency_counts_kernel
+    family = bic_kernel.contingency_counts_family
 
-    def spy(w, seg, S):
-        calls.append((tuple(seg.shape), S, w.dtype, seg.dtype))
-        return plain(w, seg, S)
+    def spy(children, parents, codes_cm, cards, w, q_cap, r_max):
+        calls.append((tuple(children.shape), tuple(parents.shape), tuple(codes_cm.shape),
+                      tuple(w.shape), q_cap * r_max, codes_cm.dtype, parents.dtype))
+        return family(children, parents, codes_cm, cards, w, q_cap, r_max)
 
-    monkeypatch.setattr(bic_kernel, "contingency_counts_kernel", spy)
+    def no_seg(*args):
+        raise AssertionError("the seg entry was called")
+
+    monkeypatch.setattr(bic_kernel, "contingency_counts_family", spy)
+    monkeypatch.setattr(bic_kernel, "contingency_counts_kernel", no_seg)
     children, parents = _families(6, 10, 4, seed=6, max_parents=3)
     scorer.score(children, parents)
     u = scorer._weights.shape[0]
-    assert calls == [((10, u), scorer.q_cap * scorer.r_max, torch.float32, torch.int32)]
+    u16 = -(-u // 16) * 16
+    assert calls == [((10,), (10, 4), (6, u16), (u,), scorer.q_cap * scorer.r_max, torch.uint8,
+                      torch.int32)]
 
 
 def test_family_batch_agrees_with_port_score_nodes():
@@ -140,7 +150,9 @@ def test_family_batch_rejects_bins_past_shared_memory():
     jds, tds = _problem(6, seed=11, max_card=3)
     q_cap = 58_112 // 3 + 1
     fb = tfb.FamilyBatchScorer(tds, max_parents=3, q_cap=q_cap, device="cpu")
-    assert fb.r_max == 3 and bic_kernel.route(bic_kernel.seg_warp_bytes(fb.q_cap * fb.r_max)) == "wide"
+    S = fb.q_cap * fb.r_max
+    assert fb.r_max == 3 and bic_kernel.route("seg", S, bic_kernel.seg_warp_bytes(S)) == "wide"
+    assert bic_kernel.route("family", S, bic_kernel.family_warp_bytes(S, 4)) == "wide"
     children, parents = _families(6, 4, 4, seed=12, max_parents=3)
     got = fb.score(children, parents).numpy()
     want = np.asarray(jfb.FamilyBatchScorer(jds, max_parents=3, q_cap=q_cap).score(children, parents))

@@ -1,5 +1,5 @@
-"""Card tests: the CUDA contingency kernels (seg and fused entries) against
-their plain versions, and the port on the card against the port on the CPU
+"""Card tests: the CUDA contingency kernels (seg, fused and family entries)
+against their plain versions, and the port on the card against the port on the CPU
 (scoring, decode, the train step and the training loops).
 
 Every test here needs a CUDA card and skips without one; whether there is a
@@ -54,13 +54,20 @@ def _inputs(R, U, S, seed=0):
     ],
 )
 def test_kernel_equals_plain_version(cuda, R, U, S):
+    """The entry on the route ``route()`` picks, and its narrow kernel
+    launched directly whatever the route."""
     w, seg = _inputs(R, U, S)
     want = bic_kernel.contingency_counts_plain(w, seg, S)
-    before = bic_kernel.contingency_counts_kernel.launches
+    wide = bic_kernel.route("seg", S, bic_kernel.seg_warp_bytes(S)) == "wide"
+    before = (bic_kernel.contingency_counts_kernel.launches,
+              bic_kernel.contingency_counts_wide.launches)
     got = bic_kernel.contingency_counts_kernel(w.to(cuda), seg.to(cuda), S)
+    narrow = bic_kernel._launch(w.to(cuda), seg.to(cuda), S)
     torch.cuda.synchronize()
-    assert bic_kernel.contingency_counts_kernel.launches == before + 1
-    assert torch.equal(got.cpu(), want)
+    assert (bic_kernel.contingency_counts_kernel.launches,
+            bic_kernel.contingency_counts_wide.launches) == (before[0] + (not wide),
+                                                             before[1] + wide)
+    assert torch.equal(got.cpu(), want) and torch.equal(narrow.cpu(), want)
 
 
 def test_kernel_wrapper_rejects_what_it_cannot_take(cuda):
@@ -109,13 +116,18 @@ def test_fused_kernel_equals_plain_and_seg_kernel(cuda, B, n, U, r_max, q_cap, i
     strides_t = strides.transpose(1, 2).contiguous()
     codes_cm = bic_kernel.column_major_codes(codes_u, r_max)
     want = bic_kernel.contingency_counts_fused_plain(strides_t, codes_cm, w, q_cap, r_max)
-    before = bic_kernel.contingency_counts_fused.launches
-    got = bic_kernel.contingency_counts_fused(
-        strides_t.to(cuda), codes_cm.to(cuda), w.to(cuda), q_cap, r_max
-    )
+    S = q_cap * r_max
+    wide = bic_kernel.route("fused", S, bic_kernel.fused_warp_bytes(S, n)) == "wide"
+    args = (strides_t.to(cuda), codes_cm.to(cuda), w.to(cuda), q_cap, r_max)
+    before = (bic_kernel.contingency_counts_fused.launches,
+              bic_kernel.contingency_counts_fused_wide.launches)
+    got = bic_kernel.contingency_counts_fused(*args)
+    narrow = bic_kernel._launch_fused(*args)  # the narrow kernel whatever the route
     torch.cuda.synchronize()
-    assert bic_kernel.contingency_counts_fused.launches == before + 1
-    assert torch.equal(got.cpu(), want)
+    assert (bic_kernel.contingency_counts_fused.launches,
+            bic_kernel.contingency_counts_fused_wide.launches) == (before[0] + (not wide),
+                                                                   before[1] + wide)
+    assert torch.equal(got.cpu(), want) and torch.equal(narrow.cpu(), want)
     seg = bic_torch.cell_index(codes_u, strides, q_cap, r_max).reshape(B * n, U)
     by_seg = bic_kernel.contingency_counts_kernel(w.to(cuda), seg.to(cuda), q_cap * r_max)
     assert torch.equal(by_seg.cpu(), want)
@@ -374,7 +386,7 @@ def test_seg_wide_kernel_equals_plain_version(cuda, R, U, S):
     assert torch.equal(got.cpu(), want)
     assert _launch_counts() == (before[0], before[1] + 1, *before[2:])
     # the seg entry routes by bins: wide rows to the wide kernel
-    wide = bic_kernel.route(bic_kernel.seg_warp_bytes(S)) == "wide"
+    wide = bic_kernel.route("seg", S, bic_kernel.seg_warp_bytes(S)) == "wide"
     by_entry = bic_kernel.contingency_counts_kernel(w.to(cuda), seg.to(cuda), S)
     assert torch.equal(by_entry.cpu(), want)
     assert _launch_counts() == (before[0] + (not wide), before[1] + 1 + wide, *before[2:])
@@ -402,7 +414,8 @@ def test_fused_wide_kernel_equals_plain(cuda, B, n, U, r_max, q_cap, indegrees):
     torch.cuda.synchronize()
     assert torch.equal(got.cpu(), want)
     assert _launch_counts() == (*before[:3], before[3] + 1)
-    wide = bic_kernel.route(bic_kernel.fused_warp_bytes(q_cap * r_max, n)) == "wide"
+    S = q_cap * r_max
+    wide = bic_kernel.route("fused", S, bic_kernel.fused_warp_bytes(S, n)) == "wide"
     assert torch.equal(bic_kernel.contingency_counts_fused(*args).cpu(), want)
     assert _launch_counts() == (*before[:2], before[2] + (not wide), before[3] + 1 + wide)
     seg = bic_torch.cell_index(codes_u, strides, q_cap, r_max).reshape(B * n, U)
@@ -478,7 +491,7 @@ def test_link_family_chunk_on_card_equals_cpu(cuda, link_dataset):
 @pytest.fixture
 def sachs_three_states():
     """Sachs with three-state variables: at ``max_parents`` 8, q_cap 4,096
-    and S = 12,288 cells a row, still on the fused entry's narrow route."""
+    and S = 12,288 cells a row."""
     _, ds = make_synthetic_problem("sachs", num_cases=5000, max_card=3, seed=0)
     return ds
 
@@ -489,11 +502,13 @@ def test_sachs_three_state_family_table_on_card_equals_cpu(cuda, sachs_three_sta
     ds = sachs_three_states
     card_scorer = BicScorer(ds, max_parents=8, device=cuda)
     assert (card_scorer.q_cap, card_scorer.r_max, ds.num_variables) == (4096, 3, 11)
-    assert bic_kernel.route(bic_kernel.fused_warp_bytes(4096 * 3, 11)) == "narrow"
+    narrow = bic_kernel.route("fused", 4096 * 3,
+                              bic_kernel.fused_warp_bytes(4096 * 3, 11)) == "narrow"
     before = _launch_counts()
     card = FamilyTableScorer(ds, max_parents=8, base_scorer=card_scorer)
-    # 2^11 masks in chunks of 1,024: two fused launches, no other route
-    assert _launch_counts() == (before[0], before[1], before[2] + 2, before[3])
+    # 2^11 masks in chunks of 1,024: two fused launches on the route route() picks
+    assert _launch_counts() == (before[0], before[1], before[2] + 2 * narrow,
+                                before[3] + 2 * (not narrow))
     cpu = FamilyTableScorer(ds, max_parents=8, device="cpu")
     got, want = card._table_t.cpu().numpy(), cpu._table_t.numpy()
     np.testing.assert_array_equal(np.isneginf(got), np.isneginf(want))
@@ -510,10 +525,13 @@ def test_sachs_three_state_exact_search_on_card_equals_cpu(cuda, sachs_three_sta
     ds = sachs_three_states
     card = BicScorer(ds, max_parents=8, device=cuda)
     cpu = BicScorer(ds, max_parents=8, device="cpu")
+    narrow = bic_kernel.route("fused", 4096 * 3,
+                              bic_kernel.fused_warp_bytes(4096 * 3, 11)) == "narrow"
     before = _launch_counts()
     got = exact_search(card, 11, max_parents=6)
-    # one chunk of 848 families per node
-    assert _launch_counts() == (before[0], before[1], before[2] + 11, before[3])
+    # one chunk of 848 families per node, on the route route() picks
+    assert _launch_counts() == (before[0], before[1], before[2] + 11 * narrow,
+                                before[3] + 11 * (not narrow))
     want = exact_search(cpu, 11, max_parents=6)
     assert got.num_families == want.num_families == 9328
     # float32 family scores summed in another order: 1e-5; float64 re-scores 1e-9
@@ -526,8 +544,7 @@ def test_sachs_three_state_exact_search_on_card_equals_cpu(cuda, sachs_three_sta
 @pytest.fixture
 def hepar2_four_states(tmp_path):
     """hepar2's simulated data with four-state variables, as its runner
-    makes it: at ``max_parents`` 8, q_cap 4,096 and S = 16,384 cells a row,
-    where ``route()`` keeps both entries narrow."""
+    makes it: at ``max_parents`` 8, q_cap 4,096 and S = 16,384 cells a row."""
     import copy
 
     from dags_vae_search_tpu_torch.experiments.registry import REGISTRY
@@ -539,6 +556,9 @@ def hepar2_four_states(tmp_path):
 
 
 def test_hepar2_four_states_both_routes_of_both_entries_equal_plain(cuda, hepar2_four_states):
+    """Each entry's narrow kernel (launched directly), its wide kernel and
+    the entry's own route equal the plain version; the launch counts follow
+    ``route()``."""
     from dags_vae_search_tpu_torch.scoring.family_batch import FamilyBatchScorer
     from dags_vae_search_tpu_torch.search.delta_hillclimb import refresh_families
 
@@ -548,8 +568,8 @@ def test_hepar2_four_states_both_routes_of_both_entries_equal_plain(cuda, hepar2
     cpu = BicScorer(ds, max_parents=8, device="cpu", impl="plain")
     S = card.q_cap * card.r_max
     assert (n, card.q_cap, card.r_max, S) == (70, 4096, 4, 16_384)
-    assert bic_kernel.route(bic_kernel.fused_warp_bytes(S, n)) == "narrow"
-    assert bic_kernel.route(bic_kernel.seg_warp_bytes(S)) == "narrow"
+    fused_wide = bic_kernel.route("fused", S, bic_kernel.fused_warp_bytes(S, n)) == "wide"
+    seg_wide = bic_kernel.route("seg", S, bic_kernel.seg_warp_bytes(S)) == "wide"
 
     # the fused entry: 4 candidates with hepar2's 123 edges
     _, adj = sampler.sample_connected_dags(np.random.default_rng(6), 4, n, 123, n,
@@ -560,11 +580,14 @@ def test_hepar2_four_states_both_routes_of_both_entries_equal_plain(cuda, hepar2
                                                      card.q_cap, card.r_max)
     args = (strides_t.to(cuda), card._codes_cm, card._weights, card.q_cap, card.r_max)
     before = _launch_counts()
-    narrow = bic_kernel.contingency_counts_fused(*args)
+    narrow = bic_kernel._launch_fused(*args)
     wide = bic_kernel.contingency_counts_fused_wide(*args)
+    routed = bic_kernel.contingency_counts_fused(*args)
     torch.cuda.synchronize()
-    assert torch.equal(narrow.cpu(), want) and torch.equal(wide.cpu(), want)
-    assert _launch_counts() == (before[0], before[1], before[2] + 1, before[3] + 1)
+    for got in (narrow, wide, routed):
+        assert torch.equal(got.cpu(), want)
+    assert _launch_counts() == (before[0], before[1], before[2] + (not fused_wide),
+                                before[3] + 1 + fused_wide)
 
     # the seg entry: the first frontier's families of 6 children
     card_fam = FamilyBatchScorer(ds, max_parents=8, q_cap=4096, device=cuda)
@@ -576,10 +599,142 @@ def test_hepar2_four_states_both_routes_of_both_entries_equal_plain(cuda, hepar2
     assert torch.equal(seg_card.cpu(), seg_cpu)
     want = bic_kernel.contingency_counts_plain(cpu_fam._weights, seg_cpu, S)
     before = _launch_counts()
-    narrow = bic_kernel.contingency_counts_kernel(card_fam._weights, seg_card, S)
+    narrow = bic_kernel._launch(card_fam._weights, seg_card, S)
     wide = bic_kernel.contingency_counts_wide(card_fam._weights, seg_card, S)
+    routed = bic_kernel.contingency_counts_kernel(card_fam._weights, seg_card, S)
     torch.cuda.synchronize()
-    assert torch.equal(narrow.cpu(), want) and torch.equal(wide.cpu(), want)
-    assert _launch_counts() == (before[0] + 1, before[1] + 1, before[2], before[3])
+    for got in (narrow, wide, routed):
+        assert torch.equal(got.cpu(), want)
+    assert _launch_counts() == (before[0] + (not seg_wide), before[1] + 1 + seg_wide,
+                                before[2], before[3])
+
+    # the family entry on the same families, and the scorer through it
+    _check_family_routes(cuda, card_fam, cpu_fam, children, parents)
     torch.testing.assert_close(card_fam.score(children, parents).cpu(),
                                cpu_fam.score(children, parents), rtol=1e-5, atol=0.0)
+
+
+# ---- the family entry: cells from parent lists, counted in the kernel -------
+
+
+def _family_counts():
+    return (bic_kernel.contingency_counts_family.launches,
+            bic_kernel.contingency_counts_family_wide.launches)
+
+
+def _check_family_routes(cuda, card_fam, cpu_fam, children, parents):
+    """The family entry's narrow kernel (launched directly, at three
+    lane-private spans, where one warp's bins fit a block), its wide kernel
+    and its own route, each equal to the plain version bit for bit."""
+    S = cpu_fam.q_cap * cpu_fam.r_max
+    cpu_args = (*cpu_fam._families(children, parents), cpu_fam._codes_cm, cpu_fam._cards,
+                cpu_fam._weights, cpu_fam.q_cap, cpu_fam.r_max)
+    args = (*card_fam._families(children, parents), card_fam._codes_cm, card_fam._cards,
+            card_fam._weights, card_fam.q_cap, card_fam.r_max)
+    want = bic_kernel.contingency_counts_family_plain(*cpu_args)
+    need = bic_kernel.family_warp_bytes(S, parents.shape[1])
+    wide_route = bic_kernel.route("family", S, need) == "wide"
+    before = _family_counts() + _launch_counts()
+    got = [bic_kernel.contingency_counts_family(*args),
+           bic_kernel.contingency_counts_family_wide(*args)]
+    if need <= bic_kernel.MAX_SHARED_BYTES:
+        got += [bic_kernel._launch_family(*args, small_span=span) for span in (0, 16, 64)]
+    torch.cuda.synchronize()
+    for counts in got:
+        assert torch.equal(counts.cpu(), want)
+    assert _family_counts() + _launch_counts() == (
+        before[0] + (not wide_route), before[1] + 1 + wide_route, *before[2:])
+    assert float(want.sum()) == cpu_fam.num_cases * len(children)
+
+
+def _refresh_chunk(fam, seed, count):
+    """Families of the delta climb's shapes: the first frontier of a few
+    children and every refresh of a random DAG's nodes (up to max_parents
+    parents), ``count`` of them."""
+    from dags_vae_search_tpu_torch.search.delta_hillclimb import refresh_families
+
+    n = fam.dataset.num_variables
+    _, adj = sampler.sample_er_batch(np.random.default_rng(seed), 1, n, 2 * n, n,
+                                     require_connected=False, max_in_degree=fam.max_parents)
+    first = refresh_families(np.zeros((n, n), bool), range(min(n, 3)), fam.max_parents)[:2]
+    final = refresh_families(adj[0] > 0, range(n), fam.max_parents)[:2]
+    children = np.asarray(first[0] + final[0], np.int32)
+    parents = np.stack(first[1] + final[1])
+    keep = np.random.default_rng(seed).permutation(len(children))[:count]
+    return children[keep], parents[keep]
+
+
+@pytest.mark.parametrize(
+    "name,max_card,q_cap,S",
+    [("alarm", 2, 256, 512), ("sachs", 3, 4096, 12_288), ("hepar2", 4, 4096, 16_384),
+     ("barley", 16, 4096, 65_536)],
+    ids=["s512", "s12288", "s16384", "s65536"],
+)
+def test_family_kernel_both_routes_equal_plain(cuda, name, max_card, q_cap, S):
+    from dags_vae_search_tpu_torch.scoring.family_batch import FamilyBatchScorer
+
+    _, ds = make_synthetic_problem(name, num_cases=1500, max_card=max_card, seed=1)
+    card = FamilyBatchScorer(ds, max_parents=8, q_cap=q_cap, device=cuda)
+    cpu = FamilyBatchScorer(ds, max_parents=8, q_cap=q_cap, device="cpu")
+    assert cpu.q_cap * cpu.r_max == S
+    children, parents = _refresh_chunk(cpu, seed=2, count=600)
+    _check_family_routes(cuda, card, cpu, children, parents)
+
+
+def test_family_kernel_int32_codes_and_empty_slots_anywhere(cuda):
+    """A 300-state variable (int32 column-major codes) and families whose
+    empty slots sit between filled ones."""
+    from dags_vae_search_tpu_torch.scoring.catalog import simulate_dataset
+    from dags_vae_search_tpu_torch.scoring.family_batch import FamilyBatchScorer
+
+    rng = np.random.default_rng(7)
+    cards = np.array([300, 2, 3, 2, 3, 4])
+    _, truth = sampler.sample_er_batch(rng, 1, 6, 7, 6)
+    ds = simulate_dataset(rng, truth[0], cards, 3000)
+    card = FamilyBatchScorer(ds, max_parents=4, q_cap=16, device=cuda)
+    cpu = FamilyBatchScorer(ds, max_parents=4, q_cap=16, device="cpu")
+    assert card._codes_cm.dtype == torch.int32
+    children = rng.integers(0, 6, size=200).astype(np.int32)
+    parents = np.full((200, 7), -1, np.int32)
+    for i, y in enumerate(children):
+        k = rng.integers(0, 5)
+        parents[i, rng.choice(7, size=k, replace=False)] = rng.choice(
+            np.delete(np.arange(6), y), size=k, replace=False)
+    _check_family_routes(cuda, card, cpu, children, parents)
+
+
+def test_family_wrapper_rejects_what_it_cannot_take(cuda):
+    from dags_vae_search_tpu_torch.scoring.family_batch import FamilyBatchScorer
+
+    _, ds = make_synthetic_problem("asia")
+    fam = FamilyBatchScorer(ds, max_parents=3, device=cuda)
+    children, parents = fam._families(np.array([0, 1], np.int32),
+                                      np.array([[1, -1, -1, -1], [0, 2, -1, -1]], np.int32))
+    args = dict(codes_cm=fam._codes_cm, cards=fam._cards, w=fam._weights, q_cap=fam.q_cap,
+                r_max=fam.r_max)
+    for entry in (bic_kernel.contingency_counts_family, bic_kernel.contingency_counts_family_wide):
+        with pytest.raises(ValueError):  # not contiguous
+            entry(children, parents.T.contiguous().T, **args)
+        with pytest.raises(ValueError):  # two devices
+            entry(children.cpu(), parents, **args)
+        with pytest.raises(ValueError):  # no families: an empty grid
+            entry(children[:0], parents[:0], **args)
+        with pytest.raises(ValueError):  # a parent past n
+            entry(children, torch.full_like(parents, 8), **args)
+
+
+def test_family_batch_scorer_counts_through_the_family_entry_on_card(cuda):
+    from dags_vae_search_tpu_torch.scoring.family_batch import FamilyBatchScorer
+
+    _, ds = make_synthetic_problem("alarm")
+    card = FamilyBatchScorer(ds, max_parents=8, q_cap=256, device=cuda)
+    cpu = FamilyBatchScorer(ds, max_parents=8, q_cap=256, device="cpu")
+    children, parents = _alarm_families(cpu, 4096, seed=5)
+    before_seg, before = bic_kernel.contingency_counts_kernel.launches, _family_counts()
+    got = card.score_chunked(children, parents, chunk=4096)
+    assert _family_counts() == (before[0] + 1, before[1])
+    assert bic_kernel.contingency_counts_kernel.launches == before_seg
+    want = cpu.score_chunked(children, parents, chunk=4096)
+    np.testing.assert_array_equal(np.isinf(got), np.isinf(want))
+    fin = np.isfinite(want)
+    np.testing.assert_allclose(got[fin], want[fin], rtol=1e-5, atol=0.0)

@@ -425,9 +425,11 @@ def test_four_state_bic_scorer_counts_and_scores_match_jax(four_states):
     scorer = tbic.BicScorer(tds, max_parents=max_parents, device="cpu", impl="kernel")
     S = scorer.q_cap * scorer.r_max
     assert (scorer.q_cap, scorer.r_max, S) == (4096, 4, 16_384)
-    # the card keeps both entries narrow at 16,384 bins a row
-    assert bic_kernel.route(bic_kernel.fused_warp_bytes(S, N)) == "narrow"
-    assert bic_kernel.route(bic_kernel.seg_warp_bytes(S)) == "narrow"
+    # the card sends rows of 16,384 bins to the wide kernels (the crossover
+    # measured on the H100)
+    assert bic_kernel.route("fused", S, bic_kernel.fused_warp_bytes(S, N)) == "wide"
+    assert bic_kernel.route("seg", S, bic_kernel.seg_warp_bytes(S)) == "wide"
+    assert bic_kernel.route("family", S, bic_kernel.family_warp_bytes(S, 9)) == "wide"
     _, adj = jsampler.sample_connected_dags(np.random.default_rng(8), 8, N, 123, N,
                                             max_in_degree=max_parents)
     got, got_q = scorer.counts(adj)

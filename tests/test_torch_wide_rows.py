@@ -54,18 +54,32 @@ def _families(n, f, width, seed, max_parents):
     return children, parents
 
 
+def _warp_bytes(entry, S, n):
+    return {"seg": lambda: bic_kernel.seg_warp_bytes(S),
+            "fused": lambda: bic_kernel.fused_warp_bytes(S, n),
+            "family": lambda: bic_kernel.family_warp_bytes(S, n)}[entry]()
+
+
 @pytest.mark.parametrize(
-    "S,n,want",
-    [(512, 0, "narrow"), (512, 37, "narrow"), (58_112, 0, "narrow"), (58_113, 0, "wide"),
-     (58_112, 1, "wide"), (58_000, 200, "wide"), (65_536, 0, "wide"), (65_536, 48, "wide")],
+    "entry,S,n,want",
+    [("fused", 512, 37, "narrow"), ("fused", 2048, 11, "narrow"), ("fused", 2052, 11, "wide"),
+     ("fused", 512, 30_000, "wide"), ("fused", 65_536, 0, "wide"),
+     ("seg", 512, 0, "narrow"), ("seg", 516, 0, "wide"), ("seg", 16_384, 0, "wide"),
+     ("seg", 58_113, 0, "wide"), ("seg", 65_536, 0, "wide"),
+     ("family", 512, 9, "narrow"), ("family", 516, 9, "wide"), ("family", 4096, 9, "wide"),
+     ("family", 16_384, 9, "wide"), ("family", 65_536, 9, "wide")],
 )
-def test_route_sends_rows_past_one_warps_shared_memory_to_the_wide_kernel(S, n, want):
-    """n = 0 is the seg entry (S bins a warp); n > 0 the fused entry (also
-    the row's parent list of n variables)."""
-    need = bic_kernel.seg_warp_bytes(S) if n == 0 else bic_kernel.fused_warp_bytes(S, n)
-    assert bic_kernel.route(need) == want
-    # the rule is the shared memory one warp of the narrow kernel would take
-    assert (want == "narrow") == (need <= bic_kernel.MAX_SHARED_BYTES)
+def test_route_sends_rows_past_one_warps_shared_memory_to_the_wide_kernel(entry, S, n, want):
+    """``n`` is the fused entry's variables and the family entry's parent
+    slots (each a row's parent list in the narrow kernel's shared memory).
+    Rows past one warp's shared memory always take the wide kernel; below
+    that, rows of more than the entry's ``NARROW_MAX_BINS`` (the crossover
+    measured on the card) take it too."""
+    need = _warp_bytes(entry, S, n)
+    assert bic_kernel.route(entry, S, need) == want
+    assert (want == "narrow") == (need <= bic_kernel.MAX_SHARED_BYTES
+                                  and S <= bic_kernel.NARROW_MAX_BINS[entry])
+    assert all(bins <= 58_112 for bins in bic_kernel.NARROW_MAX_BINS.values())
 
 
 def test_family_batch_scorer_counts_wide_rows_as_jax():
@@ -75,7 +89,9 @@ def test_family_batch_scorer_counts_wide_rows_as_jax():
     tscorer = tfb.FamilyBatchScorer(tds, max_parents=max_parents, q_cap=Q_CAP, device="cpu")
     S = tscorer.q_cap * tscorer.r_max
     assert (tscorer.q_cap, tscorer.r_max, S) == (jscorer.q_cap, jscorer.r_max, 65_536)
-    assert bic_kernel.route(bic_kernel.seg_warp_bytes(S)) == "wide"
+    assert bic_kernel.route("seg", S, bic_kernel.seg_warp_bytes(S)) == "wide"
+    assert bic_kernel.route("family", S, bic_kernel.family_warp_bytes(S, max_parents + 1)) \
+        == "wide"
     children, parents = _families(8, 36, max_parents + 1, seed=1, max_parents=max_parents)
 
     want = np.asarray(jscorer.score(children, parents))
@@ -93,6 +109,10 @@ def test_family_batch_scorer_counts_wide_rows_as_jax():
     )(jnp.asarray(seg.numpy())))
     for entry in (bic_kernel.contingency_counts_kernel, bic_kernel.contingency_counts_wide):
         np.testing.assert_array_equal(entry(w, seg, S).numpy(), want_counts)
+    args = (*tscorer._families(children, parents), tscorer._codes_cm, tscorer._cards, w,
+            tscorer.q_cap, tscorer.r_max)
+    for entry in (bic_kernel.contingency_counts_family, bic_kernel.contingency_counts_family_wide):
+        np.testing.assert_array_equal(entry(*args).numpy(), want_counts)
     assert want_counts.sum() == tds.num_cases * len(children)
 
 
