@@ -65,7 +65,10 @@ order; any failure exits non-zero:
    entry on four of the delta climb's chunks (first frontier, a one-child
    refresh, every child of its final graph, a full chunk), each route timed
    beside the path the family entry replaced (the cell table, then the seg
-   entry);
+   entry), and the family narrow kernel (a family's rows over a
+   thread-block cluster) against the one-warp-a-family kernel on the device
+   alone, in turns, at every forced cluster size and lane-private span,
+   beside the launch floor (an empty kernel) and the bound;
 10. the pipeline — the port's ``ExperimentRunner`` on the alarm experiment
    in a temporary data dir on the card, with phase 5's and phase 9's cuts
    (corpus batch 8, 2 epochs, checkpointed at the end of them, island CEM
@@ -166,7 +169,9 @@ order; any failure exits non-zero:
    polish, refine, GP ascent, BO) equal to its float64 re-score to 1e-5,
    the climb's also to the host's kernel-free re-score to 1e-9, the
    ground truth's BIC beside them; the GP the exact one; the climbs count
-   through the family entry and never the seg entry.  (b) hepar2 with
+   through the family entry and never the seg entry; both narrow family
+   kernels timed at the binary climbs' shapes (an accept batch's 8-child
+   refresh, a full chunk).  (b) hepar2 with
    four-state variables (q_cap 4,096, S = 16,384 cells a row): a
    ``variant="structure"`` runner's search (the delta climbs with the
    registry's restarts; the latent half skipped), then both routes of all
@@ -179,7 +184,8 @@ order; any failure exits non-zero:
 
 The last stdout line is ``{"ok": true, "device": {...}}``; the line before
 it holds the kernels' JSON record (three entries, each with its narrow and
-its wide route), a ``route_sweep:`` line phase 2b, a ``train:`` line phases 5-8, a ``search_stage:``
+its wide route, and the family entry's one-warp kernel, kept for timing on
+no path), a ``route_sweep:`` line phase 2b, a ``train:`` line phases 5-8, a ``search_stage:``
 line phase 9, a ``pipeline:`` line phase 10, and ``wide_rows:``,
 ``native_codec:`` and ``data_parallel:`` lines phases 11-13, a ``tier`` line
 phase 14, a ``small_tier`` line phase 15 and a ``large_tier`` line phase
@@ -304,7 +310,8 @@ LARGE_STATES = 4
 #: 1.17 GB of counts)
 LARGE_POPULATION = 256
 KERNELS = ("contingency_counts_fused", "contingency_counts_fused_wide", "contingency_counts",
-           "contingency_counts_wide", "contingency_counts_family", "contingency_counts_family_wide")
+           "contingency_counts_wide", "contingency_counts_family", "contingency_counts_family_wide",
+           "contingency_counts_family_warp")
 #: the route sweep (phase 2b): bins per row as (q_cap, r_max), the unique
 #: rows with the variables of the dataset they stand for (sachs, hepar2),
 #: repeats of each route's timing, calls a timing
@@ -312,11 +319,18 @@ SWEEP_SHAPES = {512: (256, 2), 2048: (512, 4), 4096: (1024, 4), 8192: (2048, 4),
                 12_288: (3072, 4), 16_384: (4096, 4), 32_768: (4096, 8)}
 SWEEP_ROWS = {698: 11, 5000: 70}
 SWEEP_REPEATS, SWEEP_CALLS = 6, 50
-#: the wide route leads a point only when its median is this far below the
-#: narrow route's (closer points are dispatch noise and stay narrow)
+#: the second amendment's margin: there the wide route led a point only when
+#: its median was also this far below the narrow route's; the rule no longer
+#: asks it (PERF.md), and the sweep prints that reading beside its own
 SWEEP_MARGIN = 0.05
 #: candidates of the fused entry's sweep input, families of the others'
 SWEEP_CANDIDATES, SWEEP_FAMILIES = 256, 4096
+#: the family narrow kernel against the one-warp-a-family kernel: the order
+#: of the device-only timings on one chunk, the calls in each, and the
+#: lane-private spans it is also forced to
+FAMILY_TURNS = ("warp", "cluster", "cluster", "warp")
+FAMILY_DEVICE_CALLS = 50
+FAMILY_SPANS = (0, 32, 64)
 #: Published H100 SXM peak HBM bytes/s.
 H100_BYTES_PER_S = 3.35e12
 #: INT32 lanes of one H100 SXM per clock: 132 SMs x 64.
@@ -564,7 +578,7 @@ def sweep_inputs(torch, S: int, U: int, n: int) -> dict:
         k = rng.integers(0, min(9, n))
         parents[i, :k] = rng.choice(np.delete(np.arange(n), y), size=k, replace=False)
     family = (torch.as_tensor(children, device="cuda"), torch.as_tensor(parents, device="cuda"),
-              codes_cm, cards, w, q_cap, r_max)
+              codes_cm, cards, w.to(torch.int32), q_cap, r_max)
     seg, _ = bic_kernel.family_cells(family[0], family[1], codes_cm[:, :U], cards, q_cap, r_max)
     return {"fused": (strides.transpose(1, 2).contiguous(), codes_cm, w, q_cap, r_max),
             "seg": (w, seg, S), "family": family, "n": n}
@@ -577,13 +591,14 @@ def phase_route_sweep(torch) -> dict:
     of ``SWEEP_CALLS`` calls a route in turns (narrow first in odd repeats,
     wide first in even ones), each timed on the device alone
     (:func:`device_ms`).  The rule PERF.md states reads the record: the
-    wide route is ahead at a point when it is faster in every repeat and its
-    median at least ``SWEEP_MARGIN`` below the narrow route's; an
+    wide route is ahead at a point when it is faster in every repeat; an
     entry's crossover for a U is the smallest S from which it is ahead at
     every larger swept S; the narrow route keeps the S below the smaller
     crossover of the two U, or, where the two crossovers differ by more
     than 2x, the U * S up to the larger of the two U's last narrow points.
-    What the rule reads is printed beside ``bic_kernel``'s constants."""
+    What the rule reads is printed beside ``bic_kernel``'s constants, with
+    the reading of its second amendment, which also asked the wide median
+    to be ``SWEEP_MARGIN`` below the narrow one."""
     from dags_vae_search_tpu_torch.ops import bic_kernel
 
     launch = {
@@ -610,20 +625,21 @@ def phase_route_sweep(torch) -> dict:
                             lambda: launch[entry](args, name == "wide"), reps=SWEEP_CALLS))
                 warp_bytes = {"fused": bic_kernel.fused_warp_bytes(S, n),
                               "seg": bic_kernel.seg_warp_bytes(S),
-                              "family": bic_kernel.family_warp_bytes(S, 9)}[entry]
+                              "family": bic_kernel.family_block_bytes(S, 9)}[entry]
                 faster = all(w_ < n_ for n_, w_ in zip(times["narrow"], times["wide"]))
                 margin = np.median(times["wide"]) <= (1 - SWEEP_MARGIN) * np.median(times["narrow"])
                 points.append({"entry": entry, "U": U, "S": S, "narrow_ms": times["narrow"],
-                               "wide_ms": times["wide"], "wide_ahead": bool(faster and margin),
+                               "wide_ms": times["wide"], "wide_ahead": bool(faster),
+                               "wide_ahead_by_margin": bool(faster and margin),
                                "route": bic_kernel.route(entry, S, warp_bytes)})
             del inputs
             torch.cuda.empty_cache()
-    rule = {}
     swept = list(SWEEP_SHAPES)
-    for entry in ("fused", "seg", "family"):
+
+    def reading(entry, ahead_key):
         crossover, last_narrow = {}, {}
         for U in SWEEP_ROWS:
-            ahead = [p["wide_ahead"] for p in points if p["entry"] == entry and p["U"] == U]
+            ahead = [p[ahead_key] for p in points if p["entry"] == entry and p["U"] == U]
             first = len(ahead)
             while first > 0 and ahead[first - 1]:
                 first -= 1
@@ -631,16 +647,21 @@ def phase_route_sweep(torch) -> dict:
             last_narrow[U] = swept[first - 1] if first > 0 else None
         found = [c for c in crossover.values() if c is not None]
         if not found:
-            reading = {"bins": 58_112}
+            reads = {"bins": 58_112}
         elif len(found) == len(crossover) and max(found) <= 2 * min(found):
             below = [S for S in swept if S < min(found)]
-            reading = {"bins": below[-1] if below else 0}
+            reads = {"bins": below[-1] if below else 0}
         else:
-            reading = {"rows_x_bins": max(U * S for U, S in last_narrow.items() if S)}
+            reads = {"rows_x_bins": max(U * S for U, S in last_narrow.items() if S)}
+        return crossover, last_narrow, reads
+
+    rule = {}
+    for entry in ("fused", "seg", "family"):
+        crossover, last_narrow, reads = reading(entry, "wide_ahead")
         constant = {"bins": bic_kernel.NARROW_MAX_BINS[entry]}
         rule[entry] = {"crossover_by_U": crossover, "last_narrow_by_U": last_narrow,
-                       "rule_reads": reading, "module": constant,
-                       "agree": reading == constant}
+                       "rule_reads": reads, "module": constant, "agree": reads == constant,
+                       "second_amendment_reads": reading(entry, "wide_ahead_by_margin")[2]}
     out = {"points": points, "rule": rule, "card": nvidia_smi("name,power.limit")}
     for p in points:
         print(f"route sweep {p['entry']:6s} U={p['U']:5d} S={p['S']:6d}: narrow "
@@ -739,7 +760,8 @@ def _counters() -> dict:
             "contingency_counts": bic_kernel.contingency_counts_kernel,
             "contingency_counts_wide": bic_kernel.contingency_counts_wide,
             "contingency_counts_family": bic_kernel.contingency_counts_family,
-            "contingency_counts_family_wide": bic_kernel.contingency_counts_family_wide}
+            "contingency_counts_family_wide": bic_kernel.contingency_counts_family_wide,
+            "contingency_counts_family_warp": bic_kernel.contingency_counts_family_warp}
 
 
 def reset_launches() -> None:
@@ -1108,19 +1130,106 @@ def phase_large_closure(torch) -> dict:
     return out
 
 
-def time_family_seg(torch, fam, final_adj: np.ndarray, clock_hz, max_rows=None) -> dict:
+def picked_cluster(args) -> int | str:
+    """The cluster size the family entry's wrapper gives ``args`` (the
+    entry's positional arguments), or "wide" where it takes the wide route."""
+    from dags_vae_search_tpu_torch.ops import bic_kernel
+
+    _, parents, codes_cm, _, w, q_cap, r_max = args
+    S = q_cap * r_max
+    if bic_kernel.route("family", S, bic_kernel.family_block_bytes(S, parents.shape[1])) == "wide":
+        return "wide"
+    return bic_kernel._family_cluster(parents, codes_cm, w, q_cap, r_max)
+
+
+def ptxas_report() -> dict:
+    """Registers, stack, spills and static shared memory of each kernel of
+    ``csrc/contingency_counts.cu`` from this run's ``nvcc -Xptxas -v``
+    output, by mangled name (empty when the library was built earlier)."""
+    from dags_vae_search_tpu_torch.ops import _build
+
+    out: dict = {}
+    name = None
+    for line in _build.build_logs.get("contingency_counts", "").splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+            out[name] = {}
+        elif name and "spill stores" in line:
+            out[name]["stack_and_spills"] = line.strip()
+        elif name and "Used" in line and "registers" in line:
+            out[name]["registers"] = line.split(":", 1)[1].strip()
+    return out
+
+
+def family_kernel_resources() -> dict:
+    """:func:`ptxas_report` for the family narrow kernel (both code types)
+    and the one-warp-a-family kernel."""
+    report = ptxas_report()
+    return {
+        "cluster": {k: v for k, v in report.items() if "family_cluster_kernel" in k},
+        "warp": {k: v for k, v in report.items()
+                 if "rows_kernel" in k and "FamilyRows" in k and "wide" not in k},
+    }
+
+
+def time_family_designs(torch, args, label: str) -> dict:
+    """The family entry's narrow kernel (a cluster of
+    ``family_cluster_size``'s blocks a family) against the one-warp-a-family
+    kernel on one chunk's arguments: each forced cluster size and lane-private
+    span first held bit-equal to the plain version (tolerance 0), then device
+    time alone (:func:`device_ms`, ``FAMILY_DEVICE_CALLS`` calls each): the
+    two designs in the turns ``FAMILY_TURNS``, the cluster kernel at each
+    cluster size and each span of ``FAMILY_SPANS``, and the launch floor (an
+    empty kernel through the same clock)."""
+    from dags_vae_search_tpu_torch.ops import bic_kernel
+
+    want = bic_kernel.contingency_counts_family_plain(*args)
+    runs = {"warp": lambda: bic_kernel._launch_family_warp(*args),
+            "cluster": lambda: bic_kernel._launch_family(*args)}
+    for c in bic_kernel.FAMILY_CLUSTER_SIZES:
+        runs[f"c{c}"] = lambda c=c: bic_kernel._launch_family(*args, cluster=c)
+    for span in FAMILY_SPANS:
+        runs[f"span{span}"] = lambda span=span: bic_kernel._launch_family(*args, private_span=span)
+    for name, run in runs.items():
+        check(torch.equal(run(), want), f"{label}: family {name} kernel differs from the plain "
+                                        f"version")
+    turns: dict = {"warp": [], "cluster": []}
+    for name in FAMILY_TURNS:
+        turns[name].append(device_ms(runs[name], reps=FAMILY_DEVICE_CALLS))
+    _, parents, codes_cm, _, _, q_cap, r_max = args
+    S = q_cap * r_max
+    return {
+        "cluster": picked_cluster(args),
+        "blocks_per_sm": bic_kernel._family_occupancy(
+            parents.device.index, codes_cm.element_size(), S, parents.shape[1],
+            min(bic_kernel.FAMILY_PRIVATE_SPAN, S))[0],
+        "warp_device_ms": turns["warp"], "cluster_device_ms": turns["cluster"],
+        "forced_cluster_device_ms": {c: device_ms(runs[f"c{c}"], reps=FAMILY_DEVICE_CALLS)
+                                     for c in bic_kernel.FAMILY_CLUSTER_SIZES},
+        "private_span_device_ms": {span: device_ms(runs[f"span{span}"], reps=FAMILY_DEVICE_CALLS)
+                                   for span in FAMILY_SPANS},
+        "floor_ms": device_ms(lambda: bic_kernel.launch_floor("cuda"), reps=FAMILY_DEVICE_CALLS),
+    }
+
+
+def time_family_seg(torch, fam, final_adj: np.ndarray, clock_hz, max_rows=None,
+                    refresh_children=None) -> dict:
     """The family entry (what the delta climb calls) and the seg entry at
     the climb's shapes, each built by the climb's own ``refresh_families``:
     its first frontier (every single-parent family of the empty graph), a
     one-child refresh, and a refresh of every child of the climb's final
     graph (multi-parent families, up to ``max_parents`` parents); then a
-    full ``DELTA_CHUNK`` of such families.  ``max_rows`` keeps the first
-    rows of each (the climb's own chunks at large n).  Each route of both
-    entries (the narrow one where one warp's bins fit a block) held
-    bit-equal to the plain version (tolerance 0) and timed, beside the
-    family entry's plain version, the path it replaced (``fam.cells`` then
-    the seg entry), the cells alone, the ``torch.bincount`` yardstick on the
-    cells, and both entries' bounds from this input."""
+    full ``DELTA_CHUNK`` of such families, and where ``refresh_children``
+    is given, the refresh of that many children of the final graph (an
+    accept batch's).  ``max_rows`` keeps the first rows of each (the climb's
+    own chunks at large n).  Each route of both entries (the narrow one
+    where it fits a block, and the one-warp-a-family kernel) held bit-equal
+    to the plain version (tolerance 0) and timed, beside the family entry's
+    plain version, the path it replaced (``fam.cells`` then the seg entry),
+    the cells alone, the ``torch.bincount`` yardstick on the cells, and both
+    entries' bounds from this input; the two narrow family designs also on
+    the device alone (:func:`time_family_designs`).  The family kernels get
+    the scorer's int32 multiplicities, as the climb sends them."""
     from dags_vae_search_tpu_torch.ops import bic_kernel
     from dags_vae_search_tpu_torch.search.delta_hillclimb import refresh_families
 
@@ -1128,18 +1237,23 @@ def time_family_seg(torch, fam, final_adj: np.ndarray, clock_hz, max_rows=None) 
     empty = np.zeros((n, n), bool)
     w, q_cap, r_max = fam._weights, fam.q_cap, fam.r_max
     S = q_cap * r_max
-    chunks = {key: refresh_families(adj, ys, fam.max_parents)[:2] for key, adj, ys in (
-        ("first", empty, range(n)), ("refresh", empty, [0]), ("final", final_adj > 0, range(n)))}
+    shapes = [("first", empty, range(n)), ("refresh", empty, [0]),
+              ("final", final_adj > 0, range(n))]
+    chunks = {key: refresh_families(adj, ys, fam.max_parents)[:2] for key, adj, ys in shapes}
     # a full chunk of real families, the shape a climb above n = 64 sends:
     # the first frontier's and the final refresh's families, cycled
     children, parents = (np.concatenate([chunks["first"][i], chunks["final"][i]]) for i in (0, 1))
     chunks["full"] = (np.resize(children, DELTA_CHUNK),
                       np.resize(parents, (DELTA_CHUNK, parents.shape[1])))
+    if refresh_children:
+        chunks[f"refresh_{refresh_children}"] = refresh_families(
+            final_adj > 0, range(refresh_children), fam.max_parents)[:2]
     t = {}
     for key, (children, parents) in chunks.items():
         children = np.asarray(children, np.int32)[:max_rows]
         parents = np.asarray(parents, np.int32)[:max_rows]
-        args = (*fam._families(children, parents), fam._codes_cm, fam._cards, w, q_cap, r_max)
+        args = (*fam._families(children, parents), fam._codes_cm, fam._cards,
+                fam._multiplicities, q_cap, r_max)
         seg = fam.cells(children, parents)[0]
         F, U = seg.shape
         P = parents.shape[1]
@@ -1148,13 +1262,17 @@ def time_family_seg(torch, fam, final_adj: np.ndarray, clock_hz, max_rows=None) 
               f"family {key} chunk: the family entry's plain version differs from the seg path")
         runs = {"family_wide": lambda: bic_kernel._launch_family(*args, wide=True),
                 "seg_wide": lambda: bic_kernel._launch(w, seg, S, wide=True)}
-        if bic_kernel.family_warp_bytes(S, P) <= bic_kernel.MAX_SHARED_BYTES:
+        narrow_fits = bic_kernel.family_block_bytes(S, P) <= bic_kernel.MAX_SHARED_BYTES
+        warp_fits = bic_kernel.family_warp_bytes(S, P) <= bic_kernel.MAX_SHARED_BYTES
+        if narrow_fits:
             runs["family_narrow"] = lambda: bic_kernel._launch_family(*args)
+        if warp_fits:
+            runs["family_warp"] = lambda: bic_kernel._launch_family_warp(*args)
         if bic_kernel.seg_warp_bytes(S) <= bic_kernel.MAX_SHARED_BYTES:
             runs["seg_narrow"] = lambda: bic_kernel._launch(w, seg, S)
         rec = {"F": F, "U": U, "S": S, "P": P,
                "max_parents_in_chunk": int((parents >= 0).sum(1).max()),
-               "family_route": bic_kernel.route("family", S, bic_kernel.family_warp_bytes(S, P)),
+               "family_route": bic_kernel.route("family", S, bic_kernel.family_block_bytes(S, P)),
                "seg_route": bic_kernel.route("seg", S, bic_kernel.seg_warp_bytes(S))}
         err = 0.0
         for name, run in runs.items():
@@ -1181,9 +1299,19 @@ def time_family_seg(torch, fam, final_adj: np.ndarray, clock_hz, max_rows=None) 
             **family_bound(args[1], fam._codes_cm, U, S, clock_hz),
             "seg_bound": seg_bound(F, U, S, clock_hz),
         })
+        if narrow_fits and warp_fits:
+            designs = time_family_designs(torch, args, f"family {key} chunk")
+            designs["limit"] = "floor" if designs["floor_ms"] > rec["bound_ms"] else "bound"
+            rec["designs"] = designs
         t[key] = rec
         del flat, w_rep, seg, want
     print("family and seg entries at the delta climb's shapes: " + json.dumps(t))
+    for key, rec in t.items():
+        d = rec.get("designs")
+        if d:
+            print(f"  family narrow {key} (F={rec['F']}, c={d['cluster']}): device ms warp "
+                  f"{d['warp_device_ms']}, cluster {d['cluster_device_ms']}, bound "
+                  f"{rec['bound_ms']:.5f}, floor {d['floor_ms']:.5f} ({d['limit']})")
     return t
 
 
@@ -1472,7 +1600,7 @@ def phase_wide_rows(torch, alarm_scorer, clock_hz) -> dict:
           f"{WIDE_MAX_CARD}): r_max={scorer.r_max}, U={scorer.num_unique_rows}, "
           f"q_cap={scorer.q_cap}, S={S}")
     check(S == 65_536 and bic_kernel.route("fused", S, bic_kernel.fused_warp_bytes(S, n))
-          == bic_kernel.route("family", S, bic_kernel.family_warp_bytes(S, s.max_parents + 1))
+          == bic_kernel.route("family", S, bic_kernel.family_block_bytes(S, s.max_parents + 1))
           == "wide", f"S={S} does not take the wide route")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1977,7 +2105,7 @@ def held_launches(torch, chunk=TIER_HOLD_CANDIDATES):
     names = {"fused": "contingency_counts_fused", "seg": "contingency_counts_kernel",
              "family": "contingency_counts_family"}
     entries = {key: getattr(bic_kernel, name) for key, name in names.items()}
-    held = {"fused": 0, "seg": 0, "family": 0, "check_s": 0.0}
+    held = {"fused": 0, "seg": 0, "family": 0, "check_s": 0.0, "family_clusters": {}}
 
     def check_fused_plain(out, args):
         check_fused(torch, out, args, f"fused launch {held['fused']}", chunk)
@@ -1989,6 +2117,8 @@ def held_launches(torch, chunk=TIER_HOLD_CANDIDATES):
     def check_family_plain(out, args):
         check(torch.equal(out, bic_kernel.contingency_counts_family_plain(*args)),
               f"family launch {held['family']} differs from the plain version")
+        picked = str(picked_cluster(args))
+        held["family_clusters"][picked] = held["family_clusters"].get(picked, 0) + 1
 
     checks = {"fused": check_fused_plain, "seg": check_seg_plain, "family": check_family_plain}
 
@@ -2852,6 +2982,14 @@ def phase_large_tier(torch, clock_hz) -> dict:
         check(launches["contingency_counts_family"] > 0 and launches["contingency_counts_fused"] > 0
               and launches["contingency_counts"] == launches["contingency_counts_wide"] == 0,
               f"hepar2 search launches {launches}")
+        # the family narrow kernel at the binary climbs' shapes: an accept
+        # batch's refresh (8 children) and a full chunk
+        fam = FamilyBatchScorer(runner.scoring_dataset(), max_parents=s.max_parents,
+                                q_cap=scorer.q_cap, device="cuda")
+        out["family_seg"] = time_family_seg(torch, fam, climbs[0].best_adj, clock_hz,
+                                            max_rows=DELTA_CHUNK,
+                                            refresh_children=s.hill_climb_accept_batch)
+        del fam
         print(f"hepar2: bests {json.dumps(bests)}, ground truth {search['ground_truth_bic']:.4f}, "
               f"restart history {out['climbs']['restart_history']}")
 
@@ -2930,7 +3068,16 @@ def kernel_records(er: dict, decoded: dict, stage: dict, wide: dict, tier: dict,
     sachs = small["sachs"]["fused"]
     four = large["four_states"]
     chunks = [*family.values(), *tier["family_seg"].values(), *four["family_seg"].values(),
-              *wide["family_seg"].values()]
+              *wide["family_seg"].values(), *large["family_seg"].values()]
+    # the two narrow family designs, device time alone, at the climbs' shapes
+    climb_shapes = {"alarm": family, "link": tier["family_seg"], "hepar2": large["family_seg"],
+                    "hepar2_four_states": four["family_seg"]}
+    designs = {f"{where}_{key}": {"F": rec["F"], "U": rec["U"], "S": rec["S"],
+                                  "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
+                                  **rec["designs"]}
+               for where, recs in climb_shapes.items() for key, rec in recs.items()
+               if "designs" in rec}
+    resources = family_kernel_resources()
     errs = {"fused": [f["err"] for f in [*fused_stage.values(), *sachs.values(), four["fused"]]],
             "seg": [f["err"] for f in chunks]}
 
@@ -2988,9 +3135,29 @@ def kernel_records(er: dict, decoded: dict, stage: dict, wide: dict, tier: dict,
             "library": "none: no one PyTorch call computes the cells and the counts",
             "bincount_on_cells_ms": first["bincount_ms"], "cells_ms": first["cells_ms"],
             "cells_seg_ms": first["cells_seg_ms"],
+            "design": "a family's unique rows split over a thread-block cluster, merged in "
+                      "distributed shared memory",
+            "device_ms_at_climb_shapes": designs, "ptxas": resources["cluster"],
             "family_refresh": family["refresh"], "family_final_refresh": family["final"],
             "family_full_chunk": family["full"], "link_family": tier["family_seg"],
+            "hepar2_family": large["family_seg"],
             "hepar2_four_state_family": four["family_seg"], "route_sweep": swept("family"),
+        }),
+        record("contingency_counts_family_warp", {
+            "max_abs_err": max(f["err"] for f in chunks), "ms": first["family_warp_ms"],
+            "plain_ms": first["family_plain_ms"], "bound_ms": first["bound_ms"],
+            "bound_by": first["bound_by"],
+            "inputs": "delta climb's first frontier at alarm width (" + shape.format(**first)
+                      + "), timing calls only", "bytes": first["bytes"],
+            "int_ops": first["int_ops"],
+        }, None, {
+            "on_path": False,
+            "design": "one warp a family: the family narrow kernel before the cluster split, "
+                      "kept to time against",
+            "device_ms_at_climb_shapes": {k: {"warp_device_ms": v["warp_device_ms"],
+                                              "floor_ms": v["floor_ms"]}
+                                          for k, v in designs.items()},
+            "ptxas": resources["warp"],
         }),
         record("contingency_counts_family_wide", family_main(
             wide_first, "wide", "delta climb's first frontier at barley width ("

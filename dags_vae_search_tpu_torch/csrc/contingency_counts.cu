@@ -69,10 +69,28 @@
 //   their uint8 codes of one parent column (one 16-byte load for int32).
 // - All S bins are written, zeros included, with float4 stores when S % 4 == 0.
 //
+// The family entry's narrow kernel.  The delta climbs send it mostly small
+// calls: a refresh is the n - 1 families of one child (36 at alarm, 723 at
+// link), where one warp a family leaves most of the card idle and each warp
+// walks all U rows alone.  So a family's U rows are split over a thread-block
+// cluster of c blocks (c in {1, 2, 4, 8}, picked on the host from F, U and
+// the occupancy: ops/bic_kernel.py::family_cluster_size).  Each block's eight
+// warps scan its share of the rows into the block's bins; the cluster then
+// merges its c partial histograms through distributed shared memory, each
+// block summing and storing 1/c of the row's S bins, so every count is
+// written once, with no global atomics and no second pass.  A family of at
+// most private_span cells (16 on the path: binary data, up to 3 parents)
+// counts in lane-private bins, the others in the block's shared atomics:
+// wider lane-private bins cost more in blocks per SM than they save in
+// collisions.  The bins are zeroed while warp 0 reads the family; four
+// multiplicities come in one 16-byte load beside the codes' one load.  The
+// warp-per-family kernel (contingency_counts_rows_kernel over FamilyRows)
+// stays for timing.
+//
 // Wide rows.  Each entry has a wide kernel with the same contract, which
 // ops/bic_kernel.py::route picks past the crossover measured on the H100
-// (rows of more than 2,048 bins for the fused entry and 512 for the others;
-// always past 58,112 bins, where one warp's bins no longer fit a block).
+// (rows of more than 2,048 bins for the fused entry, 4,096 for the family
+// entry and 512 for the seg entry; always past the bins one block can hold).
 // The narrow kernel loses there because a warp zeroes, scans and stores a
 // whole row alone while few warps fit an SM.  The wide kernels tile S
 // over blocks: a block owns one (row, tile) pair, all of its warps scan the
@@ -82,8 +100,11 @@
 // every tile; that integer work is small beside the output they write,
 // R*S*4 bytes, which bounds this route.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -550,16 +571,217 @@ int launch_any(const Rows& rows, const void* codes_cm, int code_bytes, const voi
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// ---- the family entry's narrow route: one family over a cluster ----------
+
+constexpr int kFamilyThreads = 256;
+constexpr int kFamilyWarps = kFamilyThreads / kWarp;
+
+// Four consecutive multiplicities from the 16-byte aligned w: one 16-byte
+// load inside [0, U), scalar loads at the ragged end, zero past U.
+__device__ __forceinline__ uint4 weights4(const uint32_t* w, int u0, int U) {
+  if (u0 + 4 <= U) return __ldg(reinterpret_cast<const uint4*>(w + u0));
+  uint4 v = make_uint4(0u, 0u, 0u, 0u);
+  if (u0 < U) v.x = __ldg(w + u0);
+  if (u0 + 1 < U) v.y = __ldg(w + u0 + 1);
+  if (u0 + 2 < U) v.z = __ldg(w + u0 + 2);
+  return v;
+}
+
+// Shared memory of one block: round_up4(S) bins of the block's histogram,
+// then kFamilyWarps lane-minor regions of private_span x 32 bins, then the
+// family's parent list (P int2).
+__host__ __device__ inline size_t family_cluster_smem(int S, int P, int private_span) {
+  return 4 * (static_cast<size_t>(round_up4(S)) +
+              static_cast<size_t>(kFamilyWarps) * private_span * kWarp) +
+         sizeof(int2) * P;
+}
+
+// Cluster k counts family k.  Thread t of its block of rank b scans the
+// groups of 4 rows b * kFamilyThreads + t + i * c * kFamilyThreads into the
+// block's bins; then the block sums bins [b * share, (b + 1) * share) over
+// the c blocks and stores them.
+template <typename Code>
+__global__ void __launch_bounds__(kFamilyThreads)
+contingency_counts_family_cluster_kernel(FamilyRows rows, const Code* __restrict__ codes_cm,
+                                         const uint32_t* __restrict__ w,
+                                         float* __restrict__ out, Layout g, int private_span) {
+  extern __shared__ __align__(16) uint32_t smem[];
+  __shared__ int list_len, row_span;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int c = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int64_t row = static_cast<int64_t>(blockIdx.x) / c;
+  const int S = g.q_cap * g.r_max;
+  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
+  uint32_t* hist = smem;
+  uint32_t* priv = smem + round_up4(S);
+  uint32_t* mine = priv + warp * private_span * kWarp;
+  int2* parents = reinterpret_cast<int2*>(priv + kFamilyWarps * private_span * kWarp);
+
+  // the bins are zeroed while warp 0 waits on the family's slots and cards
+  block_zero(hist, round_up4(S));
+  warp_zero(mine, private_span * kWarp, lane);
+  if (warp == 0) {
+    int reach;
+    const int count = rows.parent_list(row, g, parents, lane, &reach);
+    if (lane == 0) {
+      list_len = count;
+      row_span = (min(reach, g.q_cap - 1) + 1) * g.r_max;
+    }
+  }
+  __syncthreads();
+  // every cell of this family lies below span, the same in every block
+  const int num_parents = list_len, span = row_span;
+  const int span4 = round_up4(span);
+  const bool lane_private = span <= private_span;  // uniform over the cluster
+
+  const Code* child_col = codes_cm + static_cast<int64_t>(rows.child(row)) * g.ldc;
+  const int step = 4 * c * kFamilyThreads;
+  for (int u0 = 4 * (rank * kFamilyThreads + static_cast<int>(threadIdx.x)); u0 < g.U;
+       u0 += step) {
+    int cfg[4] = {0, 0, 0, 0};
+#pragma unroll 2
+    for (int p = 0; p < num_parents; ++p) {
+      const int2 par = parents[p];
+      const Codes4<Code> cd(codes_cm + par.x + u0);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) cfg[j] += par.y * cd[j];
+    }
+    const Codes4<Code> child(child_col + u0);
+    const uint4 wv = weights4(w, u0, g.U);
+    const uint32_t wj[4] = {wv.x, wv.y, wv.z, wv.w};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int cell = min(cfg[j], g.q_cap - 1) * g.r_max + child[j];
+      // rows past U weigh 0 and add nothing
+      if (static_cast<unsigned>(cell) < static_cast<unsigned>(span) && wj[j] != 0u) {
+        if (lane_private) {
+          mine[cell * kWarp + lane] += wj[j];
+        } else {
+          atomicAdd(&hist[cell], wj[j]);
+        }
+      }
+    }
+  }
+
+  if (lane_private) {
+    // the block's bins: warp v sums bins v, v + 8, ... over the 8 warps'
+    // lanes, one lane-minor column per warp read, then across the lanes
+    __syncthreads();
+    for (int s = warp; s < span4; s += kFamilyWarps) {
+      uint32_t x = 0u;
+      if (s < span) {
+#pragma unroll
+        for (int v = 0; v < kFamilyWarps; ++v) x += priv[(v * private_span + s) * kWarp + lane];
+      }
+      x = __reduce_add_sync(kFull, x);
+      if (lane == 0) hist[s] = x;
+    }
+  }
+  // every block's bins [0, span4) are final and visible to the cluster (a
+  // cluster of one block needs only the block's barrier)
+  if (c == 1) {
+    __syncthreads();
+  } else {
+    cluster.sync();
+  }
+
+  const int share = round_up4((S + c - 1) / c);
+  const int lo = min(S, rank * share), hi = min(S, lo + share);
+  float* out_row = out + row * static_cast<int64_t>(S);
+  if ((S & 3) == 0) {
+    float4* o = reinterpret_cast<float4*>(out_row);
+    for (int k = lo / 4 + static_cast<int>(threadIdx.x); k < hi / 4; k += kFamilyThreads) {
+      uint4 sum = make_uint4(0u, 0u, 0u, 0u);
+      if (4 * k < span) {
+        for (int r = 0; r < c; ++r) {
+          const uint32_t* h = c == 1 ? hist : cluster.map_shared_rank(hist, r);
+          const uint4 v = reinterpret_cast<const uint4*>(h)[k];
+          sum.x += v.x;
+          sum.y += v.y;
+          sum.z += v.z;
+          sum.w += v.w;
+        }
+      }
+      o[k] = make_float4(static_cast<float>(sum.x), static_cast<float>(sum.y),
+                         static_cast<float>(sum.z), static_cast<float>(sum.w));
+    }
+  } else {
+    for (int s = lo + static_cast<int>(threadIdx.x); s < hi; s += kFamilyThreads) {
+      uint32_t sum = 0u;
+      if (s < span) {
+        for (int r = 0; r < c; ++r) sum += (c == 1 ? hist : cluster.map_shared_rank(hist, r))[s];
+      }
+      out_row[s] = static_cast<float>(sum);
+    }
+  }
+  // no block leaves while another still reads its bins
+  if (c > 1) cluster.sync();
+}
+
+template <typename Code>
+int launch_family_cluster(const FamilyRows& rows, const void* codes_cm, const void* w, void* out,
+                          int64_t F, const Layout& g, int cluster, int private_span,
+                          cudaStream_t stream) {
+  const size_t smem = family_cluster_smem(g.q_cap * g.r_max, rows.P, private_span);
+  const int64_t blocks = F * cluster;
+  if (cluster < 1 || private_span < 0 || blocks >= 0x7fffffff ||
+      smem > static_cast<size_t>(kMaxSharedBytes)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  void (*kernel)(FamilyRows, const Code*, const uint32_t*, float*, Layout, int) =
+      contingency_counts_family_cluster_kernel<Code>;
+  cudaError_t err = allow_shared(kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = static_cast<unsigned>(cluster);
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(static_cast<unsigned>(blocks));
+  config.blockDim = dim3(kFamilyThreads);
+  config.dynamicSmemBytes = smem;
+  config.stream = stream;
+  config.attrs = &attr;
+  config.numAttrs = 1;
+  err = cudaLaunchKernelEx(&config, kernel, rows, static_cast<const Code*>(codes_cm),
+                           static_cast<const uint32_t*>(w), static_cast<float*>(out), g,
+                           private_span);
+  // read (and clear) the last error also after a refused launch, so that it
+  // does not surface at the next one
+  const cudaError_t last = cudaGetLastError();
+  return static_cast<int>(err != cudaSuccess ? err : last);
+}
+
+template <typename Code>
+int family_cluster_occupancy(int S, int P, int private_span, int* blocks) {
+  const size_t smem = family_cluster_smem(S, P, private_span);
+  if (smem > static_cast<size_t>(kMaxSharedBytes)) return static_cast<int>(cudaErrorInvalidValue);
+  void (*kernel)(FamilyRows, const Code*, const uint32_t*, float*, Layout, int) =
+      contingency_counts_family_cluster_kernel<Code>;
+  cudaError_t err = allow_shared(kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel, kFamilyThreads, smem));
+}
+
+FamilyRows family_rows(const void* children, const void* parents, const void* cards, int P) {
+  return FamilyRows{static_cast<const int32_t*>(children), static_cast<const int32_t*>(parents),
+                    static_cast<const int32_t*>(cards), P};
+}
+
+// The warp-per-family kernel (small_span >= 0) or the wide one (-1).
 int launch_family(const void* children, const void* parents, const void* cards,
                   const void* codes_cm, int code_bytes, const void* w, void* out, int64_t F,
                   int P, int U, int ldc, int q_cap, int r_max, int small_span, void* stream) {
   if (P < 1 || P > kWarp) return static_cast<int>(cudaErrorInvalidValue);
-  const FamilyRows rows{static_cast<const int32_t*>(children),
-                        static_cast<const int32_t*>(parents), static_cast<const int32_t*>(cards),
-                        P};
-  return launch_any(rows, codes_cm, code_bytes, w, out, F, Layout{U, ldc, q_cap, r_max},
-                    small_span, static_cast<cudaStream_t>(stream));
+  return launch_any(family_rows(children, parents, cards, P), codes_cm, code_bytes, w, out, F,
+                    Layout{U, ldc, q_cap, r_max}, small_span, static_cast<cudaStream_t>(stream));
 }
+
+// An empty kernel: the floor of one launch's device time.
+__global__ void empty_kernel() {}
 
 }  // namespace
 
@@ -628,16 +850,50 @@ extern "C" int contingency_counts_fused_wide_launch(const void* strides_t, const
                     out, R, Layout{U, ldc, q_cap, r_max}, -1, static_cast<cudaStream_t>(stream));
 }
 
-// The family entry.  children: int32[F] in [0, n); parents: int32[F, P],
-// 1 <= P <= 32, each in [0, n) or negative (an empty slot); cards: int32[n];
-// codes_cm, w: as contingency_counts_fused_launch (n rows of codes);
-// out: f32[F, q_cap*r_max].  Needs P * q_cap * r_max < 2^31 and n * ldc < 2^31.
-// Rows whose cells all lie below small_span take lane-private bins.
+// The family entry's narrow route.  children: int32[F] in [0, n); parents:
+// int32[F, P], 1 <= P <= 32, each in [0, n) or negative (an empty slot);
+// cards: int32[n]; codes_cm: as contingency_counts_fused_launch (n rows of
+// codes); w: uint32[U], 16-byte aligned; out: f32[F, q_cap*r_max].  Needs
+// P * q_cap * r_max < 2^31, n * ldc < 2^31, F * cluster < 2^31 and
+// family_cluster_smem(S, P, private_span) <= 232448.  Each family is counted by
+// a cluster of `cluster` blocks (a size the card refuses fails the launch);
+// families whose cells all lie below private_span take lane-private bins.
 extern "C" int contingency_counts_family_launch(const void* children, const void* parents,
                                                 const void* cards, const void* codes_cm,
                                                 int code_bytes, const void* w, void* out,
                                                 int64_t F, int P, int U, int ldc, int q_cap,
-                                                int r_max, int small_span, void* stream) {
+                                                int r_max, int cluster, int private_span,
+                                                void* stream) {
+  if (P < 1 || P > kWarp) return static_cast<int>(cudaErrorInvalidValue);
+  const FamilyRows rows = family_rows(children, parents, cards, P);
+  const Layout g{U, ldc, q_cap, r_max};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (code_bytes == 1) {
+    return launch_family_cluster<uint8_t>(rows, codes_cm, w, out, F, g, cluster, private_span, s);
+  }
+  if (code_bytes == 4) {
+    return launch_family_cluster<int32_t>(rows, codes_cm, w, out, F, g, cluster, private_span, s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Blocks of the family narrow kernel that fit one SM at S bins, P slots and
+// private_span, into *blocks (the card's occupancy calculator).
+extern "C" int contingency_counts_family_blocks_per_sm(int code_bytes, int S, int P,
+                                                       int private_span, int* blocks) {
+  if (code_bytes == 1) return family_cluster_occupancy<uint8_t>(S, P, private_span, blocks);
+  if (code_bytes == 4) return family_cluster_occupancy<int32_t>(S, P, private_span, blocks);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The family entry through the warp-per-family kernel (timing only): the
+// contract of contingency_counts_family_launch with one warp a family and its
+// lane-private bins up to small_span cells, the cluster aside.
+extern "C" int contingency_counts_family_warp_launch(const void* children, const void* parents,
+                                                     const void* cards, const void* codes_cm,
+                                                     int code_bytes, const void* w, void* out,
+                                                     int64_t F, int P, int U, int ldc, int q_cap,
+                                                     int r_max, int small_span, void* stream) {
   return launch_family(children, parents, cards, codes_cm, code_bytes, w, out, F, P, U, ldc,
                        q_cap, r_max, small_span < 0 ? 0 : small_span, stream);
 }
@@ -651,4 +907,10 @@ extern "C" int contingency_counts_family_wide_launch(const void* children, const
                                                      int r_max, void* stream) {
   return launch_family(children, parents, cards, codes_cm, code_bytes, w, out, F, P, U, ldc,
                        q_cap, r_max, -1, stream);
+}
+
+// One launch of an empty kernel (1 block of 32 threads): the launch floor.
+extern "C" int empty_kernel_launch(void* stream) {
+  empty_kernel<<<1, kWarp, 0, static_cast<cudaStream_t>(stream)>>>();
+  return static_cast<int>(cudaGetLastError());
 }

@@ -14,13 +14,17 @@ S = q_cap * r_max cells.  Source of every kernel:
 - :func:`contingency_counts_family` computes them inside the kernel from
   (child, padded parent list) families, so the [F, U] cell table of
   :func:`family_cells` is never built.  ``FamilyBatchScorer`` (the delta
-  climb's scorer) goes through it.
+  climb's scorer) goes through it.  Its narrow kernel splits each family's
+  U rows over a thread-block cluster of :func:`family_cluster_size` blocks;
+  :func:`contingency_counts_family_warp` keeps the one-warp-a-family kernel
+  for timing (on no path).
 - :func:`contingency_counts_kernel` takes the cell table ready-made, the
   one-to-one counterpart of the Pallas kernel's contract.
 
-Each entry has two routes, chosen by :func:`route`: one warp per row (the
-narrow kernel) for rows of at most ``NARROW_MAX_BINS`` bins, S tiled over
-blocks (the wide kernel: :func:`contingency_counts_wide`,
+Each entry has two routes, chosen by :func:`route`: the narrow kernel (one
+warp per row; for the family entry one cluster per family) for rows of at
+most ``NARROW_MAX_BINS`` bins, S tiled over blocks (the wide kernel:
+:func:`contingency_counts_wide`,
 :func:`contingency_counts_fused_wide`, :func:`contingency_counts_family_wide`)
 for wider rows.  Each route's wrapper counts its own launches in
 ``.launches``.
@@ -31,8 +35,10 @@ TPU kernel's 128-aligned row padding is not needed here: a warp strides over
 any U.
 
 Weights are multiplicities: non-negative integers summing below 2^24, as
-``BicScorer`` makes them.  The kernels count in integers (their shared-memory
-atomics are native only for integers), so every count is exact and equals
+``BicScorer`` makes them (float32; the family entry also takes them as
+int32, which it reads as they are).  The kernels count in integers (their
+shared-memory atomics are native only for integers), so every count is
+exact and equals
 the plain float scatter-add bit for bit.  A fractional weight would be cut
 to its integer part.  The wrappers do not check the values: that would cost
 a read back to the host on every call.
@@ -41,6 +47,7 @@ a read back to the host on every call.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -56,11 +63,25 @@ WIDE_TILE_BINS = 16_384
 SMALL_SPAN = 16
 #: Most parent slots of one family in the family entry (one lane each).
 MAX_FAMILY_SLOTS = 32
+#: The family narrow kernel: threads of one block (``kFamilyThreads``), the
+#: cluster sizes it is given (the card's portable ones), and the most cells
+#: of a family that it counts in lane-private bins (binary data: up to 3
+#: parents; 2 KB a warp), its own limit beside the fused kernel's
+#: SMALL_SPAN.  On the H100 32 and 64 cells (4 and 8 KB a warp) cost more in
+#: blocks per SM than they save in collisions (PERF.md).
+FAMILY_THREADS = 256
+FAMILY_CLUSTER_SIZES = (1, 2, 4, 8)
+FAMILY_PRIVATE_SPAN = 16
+#: Blocks per SM that the cluster split aims for: past two, more blocks of
+#: shorter scans lose to their fixed cost (PERF.md).
+FAMILY_BLOCKS_PER_SM = 2
+#: SMs of an H100 SXM (the default of :func:`family_cluster_size`).
+H100_SMS = 132
 #: Rows of at most this many bins take an entry's narrow kernel, wider rows
 #: its wide kernel: the crossover measured on the H100 by ``chip_smoke.py``'s
 #: route sweep at 698 and 5,000 unique rows (PERF.md); it moved no more than
 #: 2x between the two, so it does not follow U.
-NARROW_MAX_BINS = {"fused": 2048, "seg": 512, "family": 512}
+NARROW_MAX_BINS = {"fused": 2048, "seg": 512, "family": 4096}
 
 
 def _round_up(x: int, m: int) -> int:
@@ -209,20 +230,45 @@ def fused_warp_bytes(S: int, n: int) -> int:
 
 
 def family_warp_bytes(S: int, P: int) -> int:
-    """Shared memory one warp of the narrow family kernel takes (as the
-    launcher computes it): the bins of :func:`fused_warp_bytes` and the
-    family's parent list of P slots."""
+    """Shared memory one warp of the one-warp-a-family kernel
+    (:func:`contingency_counts_family_warp`) takes (as the launcher computes
+    it): the bins of :func:`fused_warp_bytes` and the family's parent list
+    of P slots."""
     return fused_warp_bytes(S, 0) + 8 * P
 
 
-def route(entry: str, S: int, warp_bytes: int) -> str:
+def family_block_bytes(S: int, P: int, private_span: int = FAMILY_PRIVATE_SPAN) -> int:
+    """Shared memory one block of the family narrow kernel takes (as the
+    launcher computes it): the block's S bins, ``FAMILY_THREADS / 32``
+    warps' lane-private bins of ``min(private_span, S)`` cells x 32 lanes,
+    and the family's parent list of P slots."""
+    span = min(private_span, S)
+    return 4 * (_round_up(S, 4) + FAMILY_THREADS * span) + 8 * P
+
+
+def family_cluster_size(F: int, U: int, blocks_per_sm: int, sms: int = H100_SMS) -> int:
+    """Blocks of the cluster that counts one family in the family narrow
+    kernel: the smallest of ``FAMILY_CLUSTER_SIZES`` with which the F
+    families' blocks fill the card to ``min(blocks_per_sm,
+    FAMILY_BLOCKS_PER_SM)`` blocks on each of its ``sms`` SMs
+    (``blocks_per_sm`` is the occupancy), or with which every thread of the
+    cluster has at most one step of 4 of the U rows (more blocks would
+    idle); the largest when neither holds."""
+    target = sms * max(min(blocks_per_sm, FAMILY_BLOCKS_PER_SM), 1)
+    for c in FAMILY_CLUSTER_SIZES:
+        if F * c >= target or 4 * FAMILY_THREADS * c >= U:
+            return c
+    return FAMILY_CLUSTER_SIZES[-1]
+
+
+def route(entry: str, S: int, smem_bytes: int) -> str:
     """The kernel for rows of S bins of ``entry`` ("fused", "seg" or
-    "family") whose narrow kernel needs ``warp_bytes`` of shared memory per
-    warp (:func:`fused_warp_bytes`, :func:`seg_warp_bytes`,
-    :func:`family_warp_bytes`): ``"narrow"`` (one warp per row) up to the
-    entry's ``NARROW_MAX_BINS`` while that fits a block, else ``"wide"`` (S
-    tiled over blocks)."""
-    fits = warp_bytes <= MAX_SHARED_BYTES
+    "family") whose narrow kernel needs ``smem_bytes`` of shared memory in
+    one block (:func:`fused_warp_bytes` and :func:`seg_warp_bytes` per warp,
+    :func:`family_block_bytes` per block): ``"narrow"`` up to the entry's
+    ``NARROW_MAX_BINS`` while that fits a block, else ``"wide"`` (S tiled
+    over blocks)."""
+    fits = smem_bytes <= MAX_SHARED_BYTES
     return "narrow" if S <= NARROW_MAX_BINS[entry] and fits else "wide"
 
 
@@ -369,17 +415,18 @@ def family_cells(
 
 def contingency_counts_family_plain(children, parents, codes_cm, cards, w, q_cap, r_max):
     """The family kernel's function in plain torch: :func:`family_cells`,
-    then :func:`contingency_counts_plain`.  -> f32[F, q_cap*r_max]."""
+    then :func:`contingency_counts_plain` with the multiplicities in
+    float32.  -> f32[F, q_cap*r_max]."""
     seg, _ = family_cells(children, parents, codes_cm[:, :w.shape[0]], cards, q_cap, r_max)
-    return contingency_counts_plain(w, seg, q_cap * r_max)
+    return contingency_counts_plain(w.to(torch.float32), seg, q_cap * r_max)
 
 
 def _check_family(children, parents, codes_cm, cards, w, q_cap, r_max) -> None:
     if not (children.dtype == parents.dtype == cards.dtype == torch.int32):
         raise TypeError(f"want int32 children, parents and cards, got {children.dtype}, "
                         f"{parents.dtype}, {cards.dtype}")
-    if w.dtype != torch.float32:
-        raise TypeError(f"want float32 w, got {w.dtype}")
+    if w.dtype not in (torch.float32, torch.int32):
+        raise TypeError(f"want float32 or int32 w, got {w.dtype}")
     if codes_cm.dtype not in (torch.uint8, torch.int32):
         raise TypeError(f"want uint8 or int32 codes, got {codes_cm.dtype}")
     if children.dim() != 1 or parents.dim() != 2 or parents.shape[0] != children.shape[0] \
@@ -409,8 +456,8 @@ def _check_family(children, parents, codes_cm, cards, w, q_cap, r_max) -> None:
             raise ValueError("no families: the kernel's grid would be empty")
         if not all(t.is_contiguous() for t in (children, parents, codes_cm, cards, w)):
             raise ValueError("children, parents, codes, cards and w must be contiguous")
-        if codes_cm.data_ptr() % 16:
-            raise ValueError("codes must start on a 16-byte boundary")
+        if codes_cm.data_ptr() % 16 or (w.dtype == torch.int32 and w.data_ptr() % 16):
+            raise ValueError("codes and int32 w must start on a 16-byte boundary")
     if f:
         # the kernel reads codes[child] and codes[parent] unchecked: one host read
         lo_c, hi_c, hi_p = torch.stack([children.min(), children.max(), parents.max()]).tolist()
@@ -419,20 +466,13 @@ def _check_family(children, parents, codes_cm, cards, w, q_cap, r_max) -> None:
                              f"outside [0, n={n})")
 
 
-def _launch_family(children, parents, codes_cm, cards, w, q_cap, r_max, small_span=SMALL_SPAN,
-                   wide=False):
+def _family_launch(name, tail_types, tail, children, parents, codes_cm, cards, w, q_cap, r_max):
     f, p = parents.shape
     head = [ctypes.c_void_p] * 4 + [ctypes.c_int] + [ctypes.c_void_p] * 2
     ints = [ctypes.c_int64] + [ctypes.c_int] * 5
-    if wide:
-        name = "contingency_counts_family_wide_launch"
-        fn = _function(name, head + ints + [ctypes.c_void_p])
-        tail = ()
-    else:
-        name = "contingency_counts_family_launch"
-        fn = _function(name, head + ints + [ctypes.c_int, ctypes.c_void_p])
-        tail = (small_span,)
-    w_int = w.to(torch.int32)  # the kernel reads the multiplicities as uint32
+    fn = _function(name, head + ints + tail_types + [ctypes.c_void_p])
+    # the kernels read the multiplicities as uint32
+    w_int = w if w.dtype == torch.int32 else w.to(torch.int32)
     out = torch.empty((f, q_cap * r_max), dtype=torch.float32, device=children.device)
     with torch.cuda.device(children.device):
         err = fn(
@@ -445,26 +485,82 @@ def _launch_family(children, parents, codes_cm, cards, w, q_cap, r_max, small_sp
     return out
 
 
+@functools.lru_cache(maxsize=None)
+def _family_occupancy(device_index: int, code_bytes: int, S: int, P: int,
+                      private_span: int) -> tuple:
+    """(blocks of the family narrow kernel one SM holds, SMs) on the card."""
+    fn = _function("contingency_counts_family_blocks_per_sm", [
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)])
+    blocks = ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        err = fn(code_bytes, S, P, private_span, ctypes.byref(blocks))
+    if err != 0:
+        raise RuntimeError(f"family kernel occupancy failed: cudaError {err}")
+    return blocks.value, torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+def _family_cluster(parents, codes_cm, w, q_cap, r_max, private_span=FAMILY_PRIVATE_SPAN) -> int:
+    """:func:`family_cluster_size`'s choice for a narrow call on the card,
+    at the occupancy the card reports for its shape."""
+    span = min(private_span, q_cap * r_max)
+    blocks, sms = _family_occupancy(parents.device.index, codes_cm.element_size(), q_cap * r_max,
+                                    parents.shape[1], span)
+    return family_cluster_size(parents.shape[0], w.shape[0], blocks, sms)
+
+
+def _launch_family(children, parents, codes_cm, cards, w, q_cap, r_max, cluster=None,
+                   private_span=FAMILY_PRIVATE_SPAN, wide=False):
+    """The narrow kernel (``cluster`` blocks a family, by default
+    :func:`family_cluster_size`'s choice), or the wide one; no count."""
+    args = (children, parents, codes_cm, cards, w, q_cap, r_max)
+    if wide:
+        return _family_launch("contingency_counts_family_wide_launch", [], (), *args)
+    if cluster is None:
+        cluster = _family_cluster(parents, codes_cm, w, q_cap, r_max, private_span)
+    return _family_launch("contingency_counts_family_launch", [ctypes.c_int, ctypes.c_int],
+                          (cluster, min(private_span, q_cap * r_max)), *args)
+
+
+def _launch_family_warp(children, parents, codes_cm, cards, w, q_cap, r_max,
+                        small_span=SMALL_SPAN):
+    """The one-warp-a-family kernel, lane-private bins up to ``small_span``
+    cells; no count."""
+    return _family_launch("contingency_counts_family_warp_launch", [ctypes.c_int], (small_span,),
+                          children, parents, codes_cm, cards, w, q_cap, r_max)
+
+
+def launch_floor(device) -> None:
+    """Launch an empty kernel (one block of 32 threads) on ``device``'s
+    current stream: the least device time of any launch, for timing."""
+    fn = _function("empty_kernel_launch", [ctypes.c_void_p])
+    device = torch.device(device)
+    with torch.cuda.device(device):
+        err = fn(torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"empty kernel launch failed: cudaError {err}")
+
+
 def contingency_counts_family(
     children: torch.Tensor,  # int32[F] in [0, n)
     parents: torch.Tensor,  # int32[F, P], P <= MAX_FAMILY_SLOTS, each < n; negative = empty slot
     codes_cm: torch.Tensor,  # uint8 or int32 [n, U16] from column_major_codes
     cards: torch.Tensor,  # int32[n]
-    w: torch.Tensor,  # float32[U] multiplicities
+    w: torch.Tensor,  # float32 or int32 [U] multiplicities (int32: 16-byte aligned)
     q_cap: int,
     r_max: int,
 ) -> torch.Tensor:
     """Counts f32[F, q_cap*r_max] of every family straight from its parent
-    list: a CUDA kernel on a CUDA tensor (the narrow one, or the wide one
-    where :func:`route` says so), the plain version on a CPU tensor.  Codes
-    must lie in [0, r_max).  Raises on an index outside [0, n).
+    list: a CUDA kernel on a CUDA tensor (the narrow one, a cluster of
+    :func:`family_cluster_size` blocks a family, or the wide one where
+    :func:`route` says so), the plain version on a CPU tensor.  Codes must
+    lie in [0, r_max).  Raises on an index outside [0, n).
     ``contingency_counts_family.launches`` counts launches of the narrow
     kernel."""
     _check_family(children, parents, codes_cm, cards, w, q_cap, r_max)
     if children.device.type == "cpu":
         return contingency_counts_family_plain(children, parents, codes_cm, cards, w, q_cap, r_max)
     S = q_cap * r_max
-    if route("family", S, family_warp_bytes(S, parents.shape[1])) == "wide":
+    if route("family", S, family_block_bytes(S, parents.shape[1])) == "wide":
         return _launch_family_wide(children, parents, codes_cm, cards, w, q_cap, r_max)
     out = _launch_family(children, parents, codes_cm, cards, w, q_cap, r_max)
     contingency_counts_family.launches += 1
@@ -491,6 +587,23 @@ def contingency_counts_family_wide(children, parents, codes_cm, cards, w, q_cap,
 
 
 contingency_counts_family_wide.launches = 0
+
+
+def contingency_counts_family_warp(children, parents, codes_cm, cards, w, q_cap, r_max):
+    """:func:`contingency_counts_family`'s function through the
+    one-warp-a-family kernel (rows whose one warp's bins fit a block) on a
+    CUDA tensor, the plain version on a CPU tensor.  On no path: kept to
+    time the cluster kernel against.
+    ``contingency_counts_family_warp.launches`` counts its launches."""
+    _check_family(children, parents, codes_cm, cards, w, q_cap, r_max)
+    if children.device.type == "cpu":
+        return contingency_counts_family_plain(children, parents, codes_cm, cards, w, q_cap, r_max)
+    out = _launch_family_warp(children, parents, codes_cm, cards, w, q_cap, r_max)
+    contingency_counts_family_warp.launches += 1
+    return out
+
+
+contingency_counts_family_warp.launches = 0
 
 
 def contingency_counts(

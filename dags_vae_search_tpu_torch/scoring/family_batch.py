@@ -67,6 +67,9 @@ class FamilyBatchScorer:
         self._codes_cm = bic_kernel.column_major_codes(
             torch.as_tensor(codes_u, dtype=torch.int32, device=self.device), r_max)
         self._weights = torch.as_tensor(weights, dtype=torch.float32, device=self.device)
+        # the kernels read the multiplicities as uint32: made once here, not
+        # converted on every call
+        self._multiplicities = torch.as_tensor(weights, dtype=torch.int32, device=self.device)
         self._cards = torch.as_tensor(dataset.cards, dtype=torch.int32, device=self.device)
 
     def _families(self, children, parents) -> tuple:
@@ -86,7 +89,7 @@ class FamilyBatchScorer:
         return _score_families(
             *self._families(children, parents),
             self._codes_cm,
-            self._weights,
+            self._multiplicities,
             self._cards,
             self.q_cap,
             self.r_max,
@@ -113,7 +116,7 @@ def _score_families(
     children: torch.Tensor,  # int32[F]
     parents: torch.Tensor,  # int32[F, P], -1 = empty slot
     codes_cm: torch.Tensor,  # uint8 or int32 [n, U16] column-major unique rows
-    weights: torch.Tensor,  # float32[U] unique-row multiplicities
+    weights: torch.Tensor,  # float32 or int32 [U] unique-row multiplicities
     cards: torch.Tensor,  # int32[n]
     q_cap: int,
     r_max: int,

@@ -619,31 +619,42 @@ def test_hepar2_four_states_both_routes_of_both_entries_equal_plain(cuda, hepar2
 
 def _family_counts():
     return (bic_kernel.contingency_counts_family.launches,
-            bic_kernel.contingency_counts_family_wide.launches)
+            bic_kernel.contingency_counts_family_wide.launches,
+            bic_kernel.contingency_counts_family_warp.launches)
 
 
 def _check_family_routes(cuda, card_fam, cpu_fam, children, parents):
-    """The family entry's narrow kernel (launched directly, at three
-    lane-private spans, where one warp's bins fit a block), its wide kernel
-    and its own route, each equal to the plain version bit for bit."""
+    """The family entry's narrow kernel (launched directly at each cluster
+    size and three lane-private spans, where its block fits, and once with
+    float32 weights), the one-warp-a-family kernel (three lane-private
+    spans, where one warp's bins fit a block), its wide kernel and its own
+    route, each equal to the plain version bit for bit."""
     S = cpu_fam.q_cap * cpu_fam.r_max
+    P = parents.shape[1]
     cpu_args = (*cpu_fam._families(children, parents), cpu_fam._codes_cm, cpu_fam._cards,
                 cpu_fam._weights, cpu_fam.q_cap, cpu_fam.r_max)
     args = (*card_fam._families(children, parents), card_fam._codes_cm, card_fam._cards,
-            card_fam._weights, card_fam.q_cap, card_fam.r_max)
+            card_fam._multiplicities, card_fam.q_cap, card_fam.r_max)
     want = bic_kernel.contingency_counts_family_plain(*cpu_args)
-    need = bic_kernel.family_warp_bytes(S, parents.shape[1])
+    need = bic_kernel.family_block_bytes(S, P)
     wide_route = bic_kernel.route("family", S, need) == "wide"
+    warp_fits = bic_kernel.family_warp_bytes(S, P) <= bic_kernel.MAX_SHARED_BYTES
     before = _family_counts() + _launch_counts()
     got = [bic_kernel.contingency_counts_family(*args),
            bic_kernel.contingency_counts_family_wide(*args)]
     if need <= bic_kernel.MAX_SHARED_BYTES:
-        got += [bic_kernel._launch_family(*args, small_span=span) for span in (0, 16, 64)]
+        got += [bic_kernel._launch_family(*args, cluster=c, private_span=span)
+                for c in bic_kernel.FAMILY_CLUSTER_SIZES for span in (0, 16, 64)]
+        got.append(bic_kernel._launch_family(*args[:4], card_fam._weights, *args[5:]))
+    if warp_fits:
+        got += [bic_kernel._launch_family_warp(*args, small_span=span) for span in (0, 16, 64)]
+        got.append(bic_kernel.contingency_counts_family_warp(*args))
     torch.cuda.synchronize()
     for counts in got:
         assert torch.equal(counts.cpu(), want)
     assert _family_counts() + _launch_counts() == (
-        before[0] + (not wide_route), before[1] + 1 + wide_route, *before[2:])
+        before[0] + (not wide_route), before[1] + 1 + wide_route, before[2] + warp_fits,
+        *before[3:])
     assert float(want.sum()) == cpu_fam.num_cases * len(children)
 
 
@@ -732,9 +743,87 @@ def test_family_batch_scorer_counts_through_the_family_entry_on_card(cuda):
     children, parents = _alarm_families(cpu, 4096, seed=5)
     before_seg, before = bic_kernel.contingency_counts_kernel.launches, _family_counts()
     got = card.score_chunked(children, parents, chunk=4096)
-    assert _family_counts() == (before[0] + 1, before[1])
+    assert _family_counts() == (before[0] + 1, *before[1:])
     assert bic_kernel.contingency_counts_kernel.launches == before_seg
     want = cpu.score_chunked(children, parents, chunk=4096)
     np.testing.assert_array_equal(np.isinf(got), np.isinf(want))
     fin = np.isfinite(want)
     np.testing.assert_allclose(got[fin], want[fin], rtol=1e-5, atol=0.0)
+
+
+# ---- the family narrow kernel: a family's rows over a thread-block cluster --
+
+
+def _split_families(fam, F, seed):
+    """F families at alarm width: one family of 5 parents (F = 1), the
+    refresh of one child with 4 parents (F = 36: 64 and 16 cells, both
+    sides of the lane-private limit), else :func:`_refresh_chunk`'s families
+    (0-8 parents) cycled to F."""
+    from dags_vae_search_tpu_torch.search.delta_hillclimb import refresh_families
+
+    n = fam.dataset.num_variables
+    rng = np.random.default_rng(seed)
+    if F in (1, 36):
+        y = int(rng.integers(0, n))
+        adj = np.zeros((n, n), bool)
+        adj[rng.choice(np.delete(np.arange(n), y), size=4, replace=False), y] = True
+        children, parents = refresh_families(adj, [y], fam.max_parents)[:2]
+        children, parents = np.asarray(children, np.int32), np.stack(parents)
+        assert len(children) == 36
+        keep = np.argsort(-(parents >= 0).sum(1), kind="stable")[:F]
+        return children[keep], parents[keep]
+    children, parents = _refresh_chunk(fam, seed, count=10**6)
+    return np.resize(children, F), np.resize(parents, (F, parents.shape[1]))
+
+
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8])
+@pytest.mark.parametrize("F", [1, 36, 723, 4096])
+def test_family_cluster_kernel_equals_plain_at_each_cluster_size(cuda, F, cluster):
+    """The narrow kernel forced to ``cluster`` blocks a family, on alarm's
+    binary data (U = 4,973 unique rows: not a multiple of 4, nor of any
+    cluster's slice), uint8 codes, families on both sides of the
+    lane-private limit, bit-equal to the plain version on the same card
+    tensors; and the cluster size the wrapper picks is one of the four."""
+    from dags_vae_search_tpu_torch.scoring.family_batch import FamilyBatchScorer
+
+    _, ds = make_synthetic_problem("alarm")
+    fam = FamilyBatchScorer(ds, max_parents=8, q_cap=256, device=cuda)
+    U = fam._weights.shape[0]
+    assert U % 4 and fam._codes_cm.dtype == torch.uint8
+    children, parents = _split_families(fam, F, seed=F + cluster)
+    spans = 2 ** ((parents >= 0).sum(1) + 1)
+    if F > 1:
+        assert spans.max() > bic_kernel.FAMILY_PRIVATE_SPAN >= spans.min()
+    args = (*fam._families(children, parents), fam._codes_cm, fam._cards, fam._multiplicities,
+            fam.q_cap, fam.r_max)
+    want = bic_kernel.contingency_counts_family_plain(*args)
+    got = bic_kernel._launch_family(*args, cluster=cluster)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    blocks, sms = bic_kernel._family_occupancy(torch.cuda.current_device(), 1, 512, 9,
+                                               bic_kernel.FAMILY_PRIVATE_SPAN)
+    assert blocks >= 1 and sms >= 1
+    assert bic_kernel.family_cluster_size(F, U, blocks, sms) in bic_kernel.FAMILY_CLUSTER_SIZES
+
+
+def test_family_cluster_kernel_raises_on_what_the_card_refuses(cuda):
+    """A cluster of 32 blocks (past the card's largest) and of 0 blocks fail
+    the launch and raise, with no fallback; the next launch is not hurt by
+    the refused one.  int32 multiplicities off a 16-byte boundary are
+    refused by the wrapper."""
+    from dags_vae_search_tpu_torch.scoring.family_batch import FamilyBatchScorer
+
+    _, ds = make_synthetic_problem("alarm")
+    fam = FamilyBatchScorer(ds, max_parents=8, q_cap=256, device=cuda)
+    children, parents = _split_families(fam, 36, seed=0)
+    args = (*fam._families(children, parents), fam._codes_cm, fam._cards, fam._multiplicities,
+            fam.q_cap, fam.r_max)
+    for cluster in (32, 0):
+        with pytest.raises(RuntimeError, match="cudaError"):
+            bic_kernel._launch_family(*args, cluster=cluster)
+    got = bic_kernel._launch_family(*args, cluster=8)
+    torch.cuda.synchronize()
+    assert torch.equal(got, bic_kernel.contingency_counts_family_plain(*args))
+    shifted = torch.zeros(fam._weights.shape[0] + 1, dtype=torch.int32, device=cuda)[1:]
+    with pytest.raises(ValueError, match="16-byte"):
+        bic_kernel.contingency_counts_family(*args[:4], shifted, *args[5:])

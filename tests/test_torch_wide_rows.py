@@ -57,7 +57,7 @@ def _families(n, f, width, seed, max_parents):
 def _warp_bytes(entry, S, n):
     return {"seg": lambda: bic_kernel.seg_warp_bytes(S),
             "fused": lambda: bic_kernel.fused_warp_bytes(S, n),
-            "family": lambda: bic_kernel.family_warp_bytes(S, n)}[entry]()
+            "family": lambda: bic_kernel.family_block_bytes(S, n)}[entry]()
 
 
 @pytest.mark.parametrize(
@@ -66,15 +66,16 @@ def _warp_bytes(entry, S, n):
      ("fused", 512, 30_000, "wide"), ("fused", 65_536, 0, "wide"),
      ("seg", 512, 0, "narrow"), ("seg", 516, 0, "wide"), ("seg", 16_384, 0, "wide"),
      ("seg", 58_113, 0, "wide"), ("seg", 65_536, 0, "wide"),
-     ("family", 512, 9, "narrow"), ("family", 516, 9, "wide"), ("family", 4096, 9, "wide"),
-     ("family", 16_384, 9, "wide"), ("family", 65_536, 9, "wide")],
+     ("family", 512, 9, "narrow"), ("family", 516, 9, "narrow"), ("family", 4096, 9, "narrow"),
+     ("family", 4100, 9, "wide"), ("family", 16_384, 9, "wide"), ("family", 65_536, 9, "wide")],
 )
 def test_route_sends_rows_past_one_warps_shared_memory_to_the_wide_kernel(entry, S, n, want):
     """``n`` is the fused entry's variables and the family entry's parent
     slots (each a row's parent list in the narrow kernel's shared memory).
-    Rows past one warp's shared memory always take the wide kernel; below
-    that, rows of more than the entry's ``NARROW_MAX_BINS`` (the crossover
-    measured on the card) take it too."""
+    Rows past the narrow kernel's shared memory (one warp's; for the family
+    entry one block's) always take the wide kernel; below that, rows of more
+    than the entry's ``NARROW_MAX_BINS`` (the crossover measured on the
+    card) take it too."""
     need = _warp_bytes(entry, S, n)
     assert bic_kernel.route(entry, S, need) == want
     assert (want == "narrow") == (need <= bic_kernel.MAX_SHARED_BYTES
