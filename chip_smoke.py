@@ -29,8 +29,14 @@ order; any failure exits non-zero:
 4. search  — the alarm-width CEM latent search (registry width, seeded
    random weights) for 3 iterations of 2048 candidates, with each
    iteration's wall time and the kernels' launch counts read from that run
-   alone; then one more decoded population, timed by phase, on which both
-   entries are checked and timed again;
+   alone, every launch of the score entry (the scorer's path: counts
+   reduced to node scores on chip) held against its plain version as it
+   happens (``SCORE_RTOL`` / ``SCORE_ATOL``; the check's seconds left out);
+   then one more decoded population, timed by phase, on which the count
+   entries are checked and timed again, and the score entry checked (two
+   launches bit-equal) and timed in turns against the parent's path (the
+   fused entry's counts reduced in torch), kernel, whole score step and
+   peak memory;
 5. training — the alarm registry experiment (16,260,634 parameters, its
    ``TrainConfig`` as the registry gives it) on a corpus from
    ``generate_corpus`` with one cut (corpus batch 8 instead of 64), split
@@ -57,11 +63,13 @@ order; any failure exits non-zero:
    closed-loop BO and the 512-eval budget comparison.  Each step's wall
    time, evals/s, best BIC and its float64 re-scores (kernel counts, and
    host counts without the kernel), peak memory and every entry's launches
-   (from that step alone; the delta climb's family launches each held
-   bit-equal to the plain version as they happen, no other entry
-   launching there, and no step but the delta climb launching the family
-   entry); then the fused entry held bit-equal to its plain version on a
-   dense-climb chunk and an island population, and the family and the seg
+   (from that step alone; every launch held against its plain version as
+   it happens; the delta climb launching the family entry alone, the GP
+   fit the fused entry alone for its float64 targets, every other step
+   the score entry alone); the dense climb with restarts on the parent's
+   path and on the score entry in turns; then the fused entry held
+   bit-equal to its plain version and the score entry timed as in phase 4
+   on a dense-climb chunk and an island population, and the family and the seg
    entry on four of the delta climb's chunks (first frontier, a one-child
    refresh, every child of its final graph, a full chunk), each route timed
    beside the path the family entry replaced (the cell table, then the seg
@@ -86,10 +94,13 @@ order; any failure exits non-zero:
    max_card=16)`` scored with the registry's ``max_parents`` 8: q_cap 4,096,
    r_max 16, S = 65,536 bins per row, past one warp's shared memory, so both
    entries take their wide kernels.  A dense climb from the empty graph
-   (``score_chunk`` 256, ``WIDE_CLIMB_STEPS`` steps) and a delta climb (its
-   default chunk of 4,096 families, every family launch held), each best
-   held to its float64 re-scores; the fused wide kernel held bit-equal to
-   its plain version on a climb chunk, the family and seg wide kernels on
+   (``score_chunk`` 256, ``WIDE_CLIMB_STEPS`` steps, through the score
+   entry's wide kernel) and a delta climb (its default chunk of 4,096
+   families), every launch held, each best held to its float64 re-scores;
+   ``WIDE_COMPARE_STEPS`` steps of the dense climb on the parent's path and
+   on the score entry in turns; the fused wide kernel held bit-equal to
+   its plain version on a climb chunk, the score entry timed there as in
+   phase 4, the family and seg wide kernels on
    the delta climb's chunks, each timed beside its plain version, its
    bound (the output's bytes) and ``torch.bincount``; launches per path;
    peak memory under 20 GiB; and rows of 512 bins shown still taking the
@@ -138,7 +149,9 @@ order; any failure exits non-zero:
    on the route ``route()`` picks), the structure search of a
    ``variant="structure"`` runner (the family table, exact DP, the dense
    climb with restarts by table gather), then the fused entry timed on a
-   table chunk and an exact-DP chunk on both routes; (c) synthetic_12 with
+   table chunk and an exact-DP chunk on both routes, and the score entry
+   (which the table and the DP score through) on both as in phase 4; (c)
+   synthetic_12 with
    one label: generate, split, the same fit, the search stage with the
    checkpoint (unconstrained decodes).  Every fused launch is held bit for
    bit against its plain version as it happens; each family table equals
@@ -178,12 +191,13 @@ order; any failure exits non-zero:
    three entries timed, each bit-equal to its plain version, beside its
    bound: the family and seg entries on the climb's chunks (a full 4,096
    chunk among them), the fused entry on a population of
-   ``LARGE_POPULATION`` DAGs with hepar2's 123 edges.  Every fused, seg and
-   family launch of both runners is held bit for bit against its plain
-   version as it happens, on the route ``route()`` picks.
+   ``LARGE_POPULATION`` DAGs with hepar2's 123 edges, and the score entry
+   there as in phase 4.  Every score, fused, seg and family launch of both
+   runners is held against its plain version as it happens (counts bit for
+   bit), on the route ``route()`` picks.
 
 The last stdout line is ``{"ok": true, "device": {...}}``; the line before
-it holds the kernels' JSON record (three entries, each with its narrow and
+it holds the kernels' JSON record (four entries, each with its narrow and
 its wide route, and the family entry's one-warp kernel, kept for timing on
 no path), a ``route_sweep:`` line phase 2b, a ``train:`` line phases 5-8, a ``search_stage:``
 line phase 9, a ``pipeline:`` line phase 10, and ``wide_rows:``,
@@ -309,9 +323,19 @@ LARGE_STATES = 4
 #: the fused entry's timed population at four states (R = 256 x 70 rows,
 #: 1.17 GB of counts)
 LARGE_POPULATION = 256
-KERNELS = ("contingency_counts_fused", "contingency_counts_fused_wide", "contingency_counts",
-           "contingency_counts_wide", "contingency_counts_family", "contingency_counts_family_wide",
+KERNELS = ("node_scores_fused", "node_scores_fused_wide", "contingency_counts_fused",
+           "contingency_counts_fused_wide", "contingency_counts", "contingency_counts_wide",
+           "contingency_counts_family", "contingency_counts_family_wide",
            "contingency_counts_family_warp")
+#: the score entry against its plain version: float32 sums of the same
+#: terms in another order, within 1e-5 relative or 1e-3 absolute
+SCORE_RTOL, SCORE_ATOL = 1e-5, 1e-3
+#: candidates a call of the score entry's plain version when phase 4 and
+#: phase 9 hold their launches (rows of 512 bins), and phase 11 (65,536)
+ALARM_HOLD_CANDIDATES, WIDE_HOLD_CANDIDATES = 512, 64
+#: steps of the barley dense climbs that time the parent's path against
+#: the score entry, in turns
+WIDE_COMPARE_STEPS = 5
 #: the route sweep (phase 2b): bins per row as (q_cap, r_max), the unique
 #: rows with the variables of the dataset they stand for (sachs, hepar2),
 #: repeats of each route's timing, calls a timing
@@ -335,6 +359,8 @@ FAMILY_SPANS = (0, 32, 64)
 H100_BYTES_PER_S = 3.35e12
 #: INT32 lanes of one H100 SXM per clock: 132 SMs x 64.
 H100_INT32_LANES = 132 * 64
+#: Published H100 SXM peak float32 operations/s outside the tensor cores.
+H100_FP32_PER_S = 67e12
 SOURCE = "dags_vae_search_tpu_torch/csrc/contingency_counts.cu"
 REPLACES = "dags_vae_search_tpu/ops/bic_pallas.py:46"
 
@@ -387,13 +413,17 @@ def device_ms(fn, reps: int, warmup: int = 1, sleep_cycles: int = 20_000_000) ->
     raise RuntimeError("chip_smoke check failed: the host never fell behind the sleeping card")
 
 
-def bound_of(nbytes: float, ops: float, clock_hz: float) -> dict:
+def bound_of(nbytes: float, ops: float, clock_hz: float, flops: float = 0.0) -> dict:
     """The least time of a function that moves ``nbytes`` and does ``ops``
-    INT32 operations on the card: the larger of the two times."""
+    INT32 and ``flops`` float32 operations on the card: the larger of the
+    times."""
     bytes_ms = nbytes / H100_BYTES_PER_S * 1e3
-    ops_ms = ops / (H100_INT32_LANES * clock_hz) * 1e3
-    return {"bytes": nbytes, "int_ops": ops, "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+    ops_ms = max(ops / (H100_INT32_LANES * clock_hz), flops / H100_FP32_PER_S) * 1e3
+    out = {"bytes": nbytes, "int_ops": ops, "bound_ms": max(bytes_ms, ops_ms),
+           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+    if flops:
+        out["float_ops"] = flops
+    return out
 
 
 def fused_bound(strides_t, codes_cm, w, adj, S: int, clock_hz: float) -> dict:
@@ -403,6 +433,20 @@ def fused_bound(strides_t, codes_cm, w, adj, S: int, clock_hz: float) -> dict:
     R, U = strides_t.shape[0] * strides_t.shape[1], w.shape[0]
     nbytes = strides_t.numel() * 4 + codes_cm.numel() * codes_cm.element_size() + U * 4 + R * S * 4
     return bound_of(nbytes, U * (float((adj > 0).sum()) + 2 * R), clock_hz)
+
+
+def score_bound(strides_t, codes_cm, w, adj, nonzero_cells: int, clock_hz: float) -> dict:
+    """The score entry's bound: strides, codes, weights, q and cards read
+    once, one float a row written; the fused entry's integer work (per row
+    and unique row its parents' multiply-adds, the child and the bin) and 4
+    float32 operations a cell that holds a count (a divide, a log, a
+    multiply and an add; BDeu two lgamma and two adds)."""
+    b, n = strides_t.shape[:2]
+    R, U = b * n, w.shape[0]
+    nbytes = strides_t.numel() * 4 + codes_cm.numel() * codes_cm.element_size() + U * 4 \
+        + R * 4 + n * 4 + R * 4
+    return bound_of(nbytes, U * (float((adj > 0).sum()) + 2 * R), clock_hz,
+                    4.0 * nonzero_cells)
 
 
 def seg_bound(F: int, U: int, S: int, clock_hz: float) -> dict:
@@ -755,7 +799,9 @@ def _counters() -> dict:
     """Each route's wrapper, by its record name."""
     from dags_vae_search_tpu_torch.ops import bic_kernel
 
-    return {"contingency_counts_fused": bic_kernel.contingency_counts_fused,
+    return {"node_scores_fused": bic_kernel.node_scores_fused,
+            "node_scores_fused_wide": bic_kernel.node_scores_fused_wide,
+            "contingency_counts_fused": bic_kernel.contingency_counts_fused,
             "contingency_counts_fused_wide": bic_kernel.contingency_counts_fused_wide,
             "contingency_counts": bic_kernel.contingency_counts_kernel,
             "contingency_counts_wide": bic_kernel.contingency_counts_wide,
@@ -810,36 +856,42 @@ def phase_search(torch, cfg, scorer, clock_hz) -> tuple:
     pop = cfg.search.cem_population
 
     # each iteration ends in one score call: stamp its end (after a sync that
-    # the iteration's argmax would make anyway) to get per-iteration times
+    # the iteration's argmax would make anyway) to get per-iteration times;
+    # every score launch is held against its plain version inside the call,
+    # and the stamps leave the comparisons' seconds out
     stamps = []
     score = scorer.score
-
-    def stamped_score(adj):
-        out = score(adj)
-        torch.cuda.synchronize()
-        stamps.append(time.perf_counter())
-        return out
-
-    scorer.score = stamped_score
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     reset_launches()
-    t0 = time.perf_counter()
-    try:
-        result = cem_search(model, scorer, seed=SEED, iters=CEM_ITERS, population=pop, device="cuda")
-        torch.cuda.synchronize()
-    finally:
-        del scorer.score
-    search_s = time.perf_counter() - t0
+    with held_launches(torch, ALARM_HOLD_CANDIDATES) as held:
+        def stamped_score(adj):
+            out = score(adj)
+            torch.cuda.synchronize()
+            stamps.append(time.perf_counter() - held["check_s"])
+            return out
+
+        scorer.score = stamped_score
+        t0 = time.perf_counter()
+        try:
+            result = cem_search(model, scorer, seed=SEED, iters=CEM_ITERS, population=pop,
+                                device="cuda")
+            torch.cuda.synchronize()
+        finally:
+            del scorer.score
+        search_s = time.perf_counter() - t0 - held["check_s"]
     launches = read_launches()
+    check_held(launches, held, "CEM search")
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     iter_s = np.diff([t0, *stamps]).tolist()
     for i, dt in enumerate(iter_s):
-        print(f"CEM iteration {i}: {dt:.4f} s (to the end of its score call)")
+        print(f"CEM iteration {i}: {dt:.4f} s (to the end of its score call, the check left out)")
 
     check(len(stamps) == CEM_ITERS, f"{len(stamps)} score calls in {CEM_ITERS} iterations")
-    check(launches["contingency_counts_fused"] == CEM_ITERS,
-          f"fused kernel launched {launches['contingency_counts_fused']} times in {CEM_ITERS} iterations")
+    check(launches["node_scores_fused"] == CEM_ITERS == held["score"]
+          and sum(launches.values()) == CEM_ITERS,
+          f"score kernel launched {launches['node_scores_fused']} times in {CEM_ITERS} "
+          f"iterations: {launches}")
     check(result.num_evals == CEM_ITERS * pop, "evaluation count")
     check(all(b >= a for a, b in zip(result.history, result.history[1:])), "history decreased")
     exact = check_best_exact(torch, scorer, result, cfg.num_vertices)
@@ -862,6 +914,8 @@ def phase_search(torch, cfg, scorer, clock_hz) -> tuple:
     valid_frac = float((valid & is_perm).float().mean())
     finite_frac = float(torch.isfinite(scores).float().mean())
     decoded = time_entries(torch, scorer, relabeled, "decoded candidates", clock_hz)
+    decoded["score_entry"] = time_score_entry(torch, scorer, relabeled, "decoded candidates",
+                                              clock_hz, chunk=ALARM_HOLD_CANDIDATES)
     search = {
         "params": params,
         "population": pop,
@@ -880,6 +934,7 @@ def phase_search(torch, cfg, scorer, clock_hz) -> tuple:
         "finite_score_fraction": finite_frac,
         "peak_mem_gib": peak_gib,
         "kernel_launches": launches,
+        "held": held,
     }
     return search, decoded
 
@@ -1002,8 +1057,8 @@ def phase_train_search(torch, cfg, scorer, model) -> dict:
     torch.cuda.synchronize()
     search_s = time.perf_counter() - t0
     launches = read_launches()
-    check(launches["contingency_counts_fused"] == 1,
-          f"fused kernel launched {launches['contingency_counts_fused']} times in one iteration")
+    check(launches["node_scores_fused"] == 1 and sum(launches.values()) == 1,
+          f"score kernel launched {launches['node_scores_fused']} times in one iteration")
     exact = check_best_exact(torch, scorer, result, cfg.num_vertices)
     print(f"trained-model CEM iteration: {pop} candidates in {search_s:.3f} s, best BIC "
           f"{result.best_score:.2f} (float64 {exact:.4f}), launches {launches}")
@@ -1327,6 +1382,168 @@ def fused_plain_parts(args, chunk=None):
             for i in range(0, b, step)]
 
 
+def score_plain(torch, args, kwargs, chunk=None):
+    """The score entry's plain version on one call's arguments (``args[0]``
+    the candidates), ``chunk`` candidates a call: node scores f32[B, n]."""
+    from dags_vae_search_tpu_torch.ops import bic_kernel
+
+    adj, rest = args[0], args[1:]
+    step = chunk or adj.shape[0]
+    return torch.cat([bic_kernel.node_scores_fused_plain(adj[i:i + step], *rest, **kwargs)[0]
+                      for i in range(0, adj.shape[0], step)])
+
+
+def scores_err(torch, got, want, label: str) -> float:
+    """The score entry's node scores ``got`` against its plain version's
+    ``want``: within ``SCORE_RTOL`` relative or ``SCORE_ATOL`` absolute
+    where finite, equal where not; returns the largest difference."""
+    finite = torch.isfinite(want)
+    check(torch.equal(torch.isfinite(got), finite) and torch.equal(got[~finite], want[~finite]),
+          f"{label}: the score kernel's non-finite scores differ from the plain version's")
+    diff = (got[finite] - want[finite]).abs()
+    err = float(diff.max()) if diff.numel() else 0.0
+    check(bool((diff <= SCORE_ATOL + SCORE_RTOL * want[finite].abs()).all()),
+          f"{label}: the score kernel differs from its plain version by up to {err}")
+    return err
+
+
+@contextlib.contextmanager
+def parent_path(scorer):
+    """Inside the block ``scorer`` scores as it did before the score entry:
+    the fused entry's counts written to device memory, then reduced by
+    ``bic_torch.node_scores_from_counts``."""
+    from dags_vae_search_tpu_torch.ops import bic_torch
+
+    def node_scores(adj):
+        counts, q = scorer.counts(adj)
+        return bic_torch.node_scores_from_counts(counts, q, scorer._cards,
+                                                 scorer.dataset.num_cases, scorer.metric), q
+
+    scorer._node_scores = node_scores
+    try:
+        yield
+    finally:
+        del scorer._node_scores
+
+
+def added_peak_gib(torch, fn) -> float:
+    """Device memory ``fn()`` takes at its peak above what was allocated
+    before it, in GiB."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    fn()
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - base) / 2**30
+
+
+def time_score_entry(torch, scorer, adj, label: str, clock_hz: float, chunk=None) -> dict:
+    """The score entry on one input of a main path: within tolerance of its
+    plain version (``chunk`` candidates a plain call), two launches
+    bit-equal, its kernel timed alone.  Then, in turns (parent, change,
+    change, parent), the parent's path (the fused entry's counts reduced in
+    torch) against the entry, and the scorer's whole score step on each
+    path, with peak memory; the plain version's time; the bound from this
+    input."""
+    from dags_vae_search_tpu_torch.ops import bic_kernel
+
+    args = (adj, scorer._codes_u, scorer._weights, scorer._cards, scorer.q_cap, scorer.r_max,
+            scorer.dataset.num_cases, scorer.metric)
+    kwargs = {"codes_cm": scorer._codes_cm}
+    S = scorer.q_cap * scorer.r_max
+    _, tiles = bic_kernel.score_tiles(scorer.q_cap, scorer.r_max)
+    out = {"rows": adj.shape[0] * adj.shape[1], "S": S, "tiles": tiles,
+           "route": bic_kernel.route("fused", S, bic_kernel.fused_warp_bytes(S, adj.shape[-1]))}
+
+    def entry():
+        return bic_kernel.node_scores_fused(*args, **kwargs)[0]
+
+    def parent():
+        with parent_path(scorer):
+            return scorer._node_scores(adj)[0]
+
+    got = entry()
+    again = entry()
+    torch.cuda.synchronize()
+    check(torch.equal(got, again), f"{label}: two launches of the score kernel differ")
+    out["err"] = scores_err(torch, got, score_plain(torch, args, kwargs, chunk), label)
+    strides_t, q, codes_cm = bic_kernel._score_inputs(adj, None, scorer._cards, scorer.r_max,
+                                                      scorer._codes_cm)
+    kernel_args = (strides_t, q, codes_cm, scorer._weights, scorer._cards, scorer.q_cap,
+                   scorer.r_max, scorer.dataset.num_cases, scorer.metric, 1.0)
+
+    def launch():
+        return bic_kernel._launch_scores(*kernel_args, wide=out["route"] == "wide")
+
+    check(torch.equal(launch(), got), f"{label}: the kernel differs from the entry")
+    # the kernel alone, without the strides the entry computes first
+    out["kernel_ms"] = cuda_ms(launch, reps=10)
+    turns = {"parent": [], "change": []}
+    steps = {"parent": [], "change": []}
+    for path in ("parent", "change", "change", "parent"):
+        turns[path].append(cuda_ms(parent if path == "parent" else entry, reps=10))
+        with parent_path(scorer) if path == "parent" else contextlib.nullcontext():
+            steps[path].append(cuda_ms(lambda: scorer.score(adj), reps=10))
+    with parent_path(scorer):
+        step_peak_parent = added_peak_gib(torch, lambda: scorer.score(adj))
+    out.update(entry_ms=turns["change"][0], parent_ms=turns["parent"], change_ms=turns["change"],
+               step_parent_ms=steps["parent"], step_change_ms=steps["change"],
+               peak_parent_gib=added_peak_gib(torch, parent),
+               peak_change_gib=added_peak_gib(torch, entry),
+               step_peak_parent_gib=step_peak_parent,
+               step_peak_change_gib=added_peak_gib(torch, lambda: scorer.score(adj)))
+    out["plain_ms"] = cuda_ms(lambda: score_plain(torch, args, kwargs, chunk), reps=2, warmup=1)
+    counts, _ = bic_kernel.contingency_counts(adj, scorer._codes_u, scorer._weights,
+                                              scorer._cards, scorer.q_cap, scorer.r_max,
+                                              codes_cm=scorer._codes_cm)
+    nonzero = int((counts > 0).sum())
+    del counts
+    out.update(nonzero_cells=nonzero, **score_bound(strides_t, scorer._codes_cm, scorer._weights,
+                                                    adj, nonzero, clock_hz))
+    print(f"{label}: score kernel vs plain max |diff| {out['err']:.3g} (rtol {SCORE_RTOL}, atol "
+          f"{SCORE_ATOL}), two launches bit-equal; " + json.dumps(out))
+    return out
+
+
+def compare_climbs(torch, scorer, climb, label: str) -> dict:
+    """``climb()``, a dense climb through ``scorer``, on the parent's path
+    and on the score entry in turns (parent, change, change, parent): wall
+    seconds, peak memory, best, steps and evals of each run.  Two runs of
+    one path must agree; the two paths' bests and steps are printed side by
+    side, since a float32 score-equivalent tie can part them."""
+    runs = []
+    for path in ("parent", "change", "change", "parent"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with parent_path(scorer) if path == "parent" else contextlib.nullcontext():
+            t0 = time.perf_counter()
+            res = climb()
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+        runs.append({"path": path, "seconds": seconds,
+                     "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+                     "best_bic": res.best_score, "iterations": res.iterations,
+                     "evals": res.num_evals, "edges": int(np.asarray(res.best_adj).sum()),
+                     "adj": np.asarray(res.best_adj)})
+    by_path = {p: [r for r in runs if r["path"] == p] for p in ("parent", "change")}
+    for path, (a, b) in by_path.items():
+        check(a["best_bic"] == b["best_bic"] and a["iterations"] == b["iterations"]
+              and np.array_equal(a["adj"], b["adj"]), f"{label}: two {path} runs differ")
+    parent, change = by_path["parent"][0], by_path["change"][0]
+    same = bool(np.array_equal(parent["adj"], change["adj"])
+                and parent["iterations"] == change["iterations"])
+    for r in runs:
+        del r["adj"]
+    out = {"runs": runs, "same_graph_and_steps": same,
+           "parent_s": [r["seconds"] for r in by_path["parent"]],
+           "change_s": [r["seconds"] for r in by_path["change"]]}
+    print(f"{label}, parent's path vs score entry in turns: {out['parent_s']} s vs "
+          f"{out['change_s']} s; bests {parent['best_bic']:.4f} / {change['best_bic']:.4f}, steps "
+          f"{parent['iterations']} / {change['iterations']}"
+          + ("" if same else "; the paths parted (scripts/trace_climb_parting.py finds the step)"))
+    return out
+
+
 def check_fused(torch, got, args, label: str, chunk=None) -> float:
     """``got``, the fused entry's counts on ``args``, against its plain
     version (tolerance 0); returns the largest difference."""
@@ -1394,26 +1611,25 @@ def phase_search_stage(torch, cfg, scorer, dataset, model, test_c, clock_hz) -> 
         out[np.ix_(labels, labels)] = adj
         return out
 
-    def step(name, fn, exact_of=None, evals=None, hold=False, **extra):
+    def step(name, fn, exact_of=None, evals=None, **extra):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         reset_launches()
-        with held_launches(torch) if hold else contextlib.nullcontext() as held:
+        with held_launches(torch, ALARM_HOLD_CANDIDATES) as held:
             t0 = time.perf_counter()
             res = fn()
             torch.cuda.synchronize()
             seconds = time.perf_counter() - t0
-        info = {"seconds": seconds, "launches": read_launches(),
+        info = {"seconds": seconds, "seconds_without_checks": seconds - held["check_s"],
+                "launches": read_launches(), "held": held,
                 "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
-        if hold:
-            check_held(info["launches"], held, name)
-            info.update(held=held, seconds_without_checks=seconds - held["check_s"])
+        check_held(info["launches"], held, name)
         if exact_of is not None:
             evals = res.num_evals
             info.update(best_bic=res.best_score, best_bic_exact=exact_of(res), evals=evals,
                         history_len=len(res.history))
         if evals is not None:
-            info.update(evals=evals, evals_per_s=evals / seconds)
+            info.update(evals=evals, evals_per_s=evals / info["seconds_without_checks"])
         info.update(extra)
         steps[name] = info
         print(f"search stage {name}: " + json.dumps(info))
@@ -1431,7 +1647,7 @@ def phase_search_stage(torch, cfg, scorer, dataset, model, test_c, clock_hz) -> 
     # path, every launch held against its plain version
     delta = step("delta_hill_climb", lambda: delta_hill_climb(
         fam, n, max_iters=max(s.hill_climb_iters, 4 * n), chunk=DELTA_CHUNK,
-        accept_batch=s.hill_climb_accept_batch), climb_exact, hold=True)
+        accept_batch=s.hill_climb_accept_batch), climb_exact)
     d_info = steps["delta_hill_climb"]
     check(abs(d_info["best_bic_exact"] - delta.best_score) <= 1.0,
           f"delta climb's internal score {delta.best_score} vs exact {d_info['best_bic_exact']}")
@@ -1554,27 +1770,44 @@ def phase_search_stage(torch, cfg, scorer, dataset, model, test_c, clock_hz) -> 
     winner = max(comp, key=lambda k: steps[k]["best_bic_exact"])
 
     for name, info in steps.items():
+        # the delta climb counts families; the predictor's targets are
+        # float64 exact scores, whose counts the fused entry makes; every
+        # other step scores through the score entry
+        entry = {"delta_hill_climb": "contingency_counts_family",
+                 "gp_fit": "contingency_counts_fused"}.get(name, "node_scores_fused")
         launches = info["launches"]
-        fused, family = launches["contingency_counts_fused"], launches["contingency_counts_family"]
-        if name == "delta_hill_climb":
-            check(family > 0 and sum(launches.values()) == family, f"{name}: launches {launches}")
-        else:
-            check(fused > 0 and sum(launches.values()) == fused, f"{name}: launches {launches}")
+        check(launches[entry] > 0 and sum(launches.values()) == launches[entry],
+              f"{name}: launches {launches}")
 
-    # the fused entry at the inputs these paths send it: a dense-climb chunk
-    # (the first window of 4,096 moves, hill_climb's default, from the
-    # climb's best graph) and the island CEM's first population of 8 x 512
+    # the dense climb with restarts on the parent's path and on the score
+    # entry, in turns (no check inside: the step above held every launch)
+    climb_compare = compare_climbs(torch, scorer, lambda: hillclimb.climb_with_restarts(
+        climb, np.random.default_rng(seed + 11), restarts=s.hill_climb_restarts,
+        max_parents=s.max_parents, tie_stop=s.hill_climb_tie_stop), "alarm dense climb")
+
+    # the fused and the score entry at the inputs these paths send them: a
+    # dense-climb chunk (the first window of 4,096 moves, hill_climb's
+    # default, from the climb's best graph) and the island CEM's first
+    # population of 8 x 512
     moves = hillclimb._move_candidates(torch.as_tensor(hc.best_adj, device="cuda"))
     fused_stage = {
         "climb_chunk": hold_fused(torch, scorer, moves[:4096], "dense climb chunk", clock_hz),
         "island_population": hold_fused(torch, scorer, island_pop[0], "island CEM population",
                                         clock_hz),
     }
+    score_stage = {
+        "climb_chunk": time_score_entry(torch, scorer, moves[:4096], "dense climb chunk",
+                                        clock_hz, chunk=ALARM_HOLD_CANDIDATES),
+        "island_population": time_score_entry(torch, scorer, island_pop[0],
+                                              "island CEM population", clock_hz,
+                                              chunk=ALARM_HOLD_CANDIDATES),
+    }
     del moves, island_pop
     return {"steps": steps, "seeds_s": glue_s, "budget_winner": winner,
             "cuts": {"island_iters": [s.island_iters, ISLAND_ITERS],
                      "refine_iters": [s.refine_iters, REFINE_ITERS]},
-            "fused_stage": fused_stage,
+            "fused_stage": fused_stage, "score_stage": score_stage,
+            "climb_compare": climb_compare,
             "family_seg": time_family_seg(torch, fam, delta.best_adj, clock_hz)}
 
 
@@ -1606,27 +1839,28 @@ def phase_wide_rows(torch, alarm_scorer, clock_hz) -> dict:
     torch.cuda.reset_peak_memory_stats()
     steps: dict = {}
 
-    def step(name, fn, hold=False):
+    def step(name, fn, chunk=TIER_HOLD_CANDIDATES):
         torch.cuda.synchronize()
         reset_launches()
-        with held_launches(torch) if hold else contextlib.nullcontext() as held:
+        with held_launches(torch, chunk) as held:
             t0 = time.perf_counter()
             res = fn()
             torch.cuda.synchronize()
             seconds = time.perf_counter() - t0
         steps[name] = {"seconds": seconds, "launches": read_launches(),
-                       "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
-        if hold:
-            check_held(steps[name]["launches"], held, name)
-            steps[name].update(held=held, seconds_without_checks=seconds - held["check_s"])
+                       "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+                       "held": held, "seconds_without_checks": seconds - held["check_s"]}
+        check_held(steps[name]["launches"], held, name)
         return res
 
-    dense = step("dense_climb", lambda: hillclimb.hill_climb(
-        scorer, n, max_iters=WIDE_CLIMB_STEPS, score_chunk=WIDE_CLIMB_CHUNK))
+    def dense_climb(steps_):
+        return hillclimb.hill_climb(scorer, n, max_iters=steps_, score_chunk=WIDE_CLIMB_CHUNK)
+
+    dense = step("dense_climb", lambda: dense_climb(WIDE_CLIMB_STEPS), WIDE_HOLD_CANDIDATES)
     delta = step("delta_climb", lambda: delta_hill_climb(
         fam, n, max_iters=max(s.hill_climb_iters, 4 * n), chunk=DELTA_CHUNK,
-        accept_batch=s.hill_climb_accept_batch), hold=True)
-    for name, res, entry in (("dense_climb", dense, "contingency_counts_fused_wide"),
+        accept_batch=s.hill_climb_accept_batch))
+    for name, res, entry in (("dense_climb", dense, "node_scores_fused_wide"),
                              ("delta_climb", delta, "contingency_counts_family_wide")):
         info = steps[name]
         launches = info["launches"]
@@ -1636,17 +1870,27 @@ def phase_wide_rows(torch, alarm_scorer, clock_hz) -> dict:
         info.update(best_bic=res.best_score, best_bic_exact=check_exact(scorer, res.best_score,
                                                                          res.best_adj),
                     iterations=res.iterations, converged=bool(res.converged),
-                    evals=res.num_evals, evals_per_s=res.num_evals / info["seconds"],
+                    evals=res.num_evals,
+                    evals_per_s=res.num_evals / info["seconds_without_checks"],
                     edges=int(np.asarray(res.best_adj).sum()))
         print(f"wide {name}: " + json.dumps(info))
+    # the dense climb's first steps on the parent's path and on the score
+    # entry, in turns (no check inside: the step above held every launch)
+    climb_compare = compare_climbs(torch, scorer, lambda: dense_climb(WIDE_COMPARE_STEPS),
+                                   f"barley dense climb, {WIDE_COMPARE_STEPS} steps")
 
     # the kernels at the inputs these paths send them
     moves = hillclimb._move_candidates(torch.as_tensor(dense.best_adj, device="cuda"))
     fused = hold_fused(torch, scorer, moves[:WIDE_CLIMB_CHUNK], "wide dense climb chunk", clock_hz)
-    del moves
     seg = time_family_seg(torch, fam, delta.best_adj, clock_hz)
-    peak = torch.cuda.max_memory_allocated() / 2**30
+    peak = max([torch.cuda.max_memory_allocated() / 2**30]
+               + [v["peak_mem_gib"] for v in steps.values()]
+               + [r["peak_mem_gib"] for r in climb_compare["runs"]])
     check(peak < WIDE_PEAK_GIB, f"phase 11 peak {peak:.2f} GiB")
+    # (its own peaks, above what the phase holds)
+    score = time_score_entry(torch, scorer, moves[:WIDE_CLIMB_CHUNK], "wide dense climb chunk",
+                             clock_hz, chunk=TIER_HOLD_CANDIDATES)
+    del moves
 
     # rows of 512 bins still take the narrow kernels
     reset_launches()
@@ -1654,14 +1898,15 @@ def phase_wide_rows(torch, alarm_scorer, clock_hz) -> dict:
     alarm_scorer.score(torch.zeros((4, alarm_n, alarm_n), device="cuda"))
     torch.cuda.synchronize()
     narrow = read_launches()
-    check(narrow["contingency_counts_fused"] == 1 and narrow["contingency_counts_fused_wide"] == 0,
+    check(narrow["node_scores_fused"] == 1 and sum(narrow.values()) == 1,
           f"rows of {alarm_scorer.q_cap * alarm_scorer.r_max} bins: launches {narrow}")
     out = {"dataset": {"name": WIDE_NAME, "n": n, "cases": dataset.num_cases,
                        "r_max": scorer.r_max, "U": scorer.num_unique_rows, "q_cap": scorer.q_cap,
                        "S": S},
            "cuts": {"dense_climb_steps": [s.hill_climb_iters, WIDE_CLIMB_STEPS],
                     "score_chunk": [4096, WIDE_CLIMB_CHUNK]},
-           "steps": steps, "fused_climb_chunk": fused, "family_seg": seg, "peak_mem_gib": peak,
+           "steps": steps, "fused_climb_chunk": fused, "score_climb_chunk": score,
+           "climb_compare": climb_compare, "family_seg": seg, "peak_mem_gib": peak,
            "narrow_check_launches": narrow}
     return out
 
@@ -2056,8 +2301,14 @@ def phase_pipeline(torch, cfg, name: str, corpus, train_c, test_c, hc_best: floa
     check(all(v is not None and np.isfinite(v) for v in latent.values()), f"latent bests {latent}")
     check(np.isfinite(reports["eval"]["valid_ratio_mode"]), "valid_ratio_mode is not finite")
     check(np.isfinite(reports["gp"]["mape"]), "GP mape is not finite")
-    for stage in ("search", "predictor"):
-        check(stages[stage]["launches"]["contingency_counts_fused"] > 0, f"{stage}: no fused launch")
+    # the search scores through the score entry (and re-scores its bests
+    # in float64 through the fused entry's counts); the predictor's targets
+    # are float64 exact scores
+    check(stages["search"]["launches"]["node_scores_fused"] > 0
+          and stages["search"]["launches"]["contingency_counts_fused"] > 0,
+          f"search: launches {stages['search']['launches']}")
+    check(stages["predictor"]["launches"]["contingency_counts_fused"] > 0,
+          "predictor: no fused launch")
     check(name in page, "the results page does not name the card")
     check(all(r["device"].startswith(name) for r in reports.values()), "a report names another device")
 
@@ -2082,6 +2333,7 @@ def phase_pipeline(torch, cfg, name: str, corpus, train_c, test_c, hc_best: floa
         "results_header": page.splitlines()[0],
     }
     summary = {s: {"wall_s": round(v["seconds"], 3), "peak_gib": round(v["peak_mem_gib"], 3),
+                   "score": v["launches"]["node_scores_fused"],
                    "fused": v["launches"]["contingency_counts_fused"],
                    "family": v["launches"]["contingency_counts_family"]}
                for s, v in stages.items()}
@@ -2092,41 +2344,49 @@ def phase_pipeline(torch, cfg, name: str, corpus, train_c, test_c, hc_best: floa
 
 @contextlib.contextmanager
 def held_launches(torch, chunk=TIER_HOLD_CANDIDATES):
-    """Inside the block, every launch of the fused, the seg and the family
-    entry (on either route) is held against its plain version on the same
-    inputs, bit for bit (tolerance 0); the fused entry's plain version runs
-    on ``chunk`` candidates at a time.  Yields a record of the calls held
-    per entry and the seconds the comparisons took (kept out of the rates).
-    An entry counts its launches on the function its module name holds, so
-    each checking wrapper carries the count while it is installed and hands
-    it back."""
+    """Inside the block, every launch of the score, the fused, the seg and
+    the family entry (on either route) is held against its plain version on
+    the same inputs: the counts bit for bit (tolerance 0), the scores within
+    ``SCORE_RTOL`` / ``SCORE_ATOL``; the score and fused entries' plain
+    versions run on ``chunk`` candidates at a time.  Yields a record of the
+    calls held per entry, the scores' largest difference and the seconds
+    the comparisons took (kept out of the rates).  An entry counts its
+    launches on the function its module name holds, so each checking
+    wrapper carries the count while it is installed and hands it back."""
     from dags_vae_search_tpu_torch.ops import bic_kernel
 
-    names = {"fused": "contingency_counts_fused", "seg": "contingency_counts_kernel",
-             "family": "contingency_counts_family"}
+    names = {"score": "node_scores_fused", "fused": "contingency_counts_fused",
+             "seg": "contingency_counts_kernel", "family": "contingency_counts_family"}
     entries = {key: getattr(bic_kernel, name) for key, name in names.items()}
-    held = {"fused": 0, "seg": 0, "family": 0, "check_s": 0.0, "family_clusters": {}}
+    held = {"score": 0, "fused": 0, "seg": 0, "family": 0, "score_err": 0.0, "check_s": 0.0,
+            "family_clusters": {}}
 
-    def check_fused_plain(out, args):
+    def check_score_plain(out, args, kwargs):
+        want = score_plain(torch, args, kwargs, chunk)
+        err = scores_err(torch, out[0], want, f"score launch {held['score']}")
+        held["score_err"] = max(held["score_err"], err)
+
+    def check_fused_plain(out, args, kwargs):
         check_fused(torch, out, args, f"fused launch {held['fused']}", chunk)
 
-    def check_seg_plain(out, args):
+    def check_seg_plain(out, args, kwargs):
         check(torch.equal(out, bic_kernel.contingency_counts_plain(*args)),
               f"seg launch {held['seg']} differs from the plain version")
 
-    def check_family_plain(out, args):
+    def check_family_plain(out, args, kwargs):
         check(torch.equal(out, bic_kernel.contingency_counts_family_plain(*args)),
               f"family launch {held['family']} differs from the plain version")
         picked = str(picked_cluster(args))
         held["family_clusters"][picked] = held["family_clusters"].get(picked, 0) + 1
 
-    checks = {"fused": check_fused_plain, "seg": check_seg_plain, "family": check_family_plain}
+    checks = {"score": check_score_plain, "fused": check_fused_plain, "seg": check_seg_plain,
+              "family": check_family_plain}
 
     def holding(key):
-        def held_entry(*args):
-            out = entries[key](*args)
+        def held_entry(*args, **kwargs):
+            out = entries[key](*args, **kwargs)
             t0 = time.perf_counter()
-            checks[key](out, args)
+            checks[key](out, args, kwargs)
             held[key] += 1
             held["check_s"] += time.perf_counter() - t0
             return out
@@ -2147,8 +2407,8 @@ def held_launches(torch, chunk=TIER_HOLD_CANDIDATES):
 def check_held(launches: dict, held: dict, label: str) -> None:
     """Every call of an entry inside :func:`held_launches` launched once, on
     one of its two routes, and was held."""
-    for key, name in (("fused", "contingency_counts_fused"), ("seg", "contingency_counts"),
-                      ("family", "contingency_counts_family")):
+    for key, name in (("score", "node_scores_fused"), ("fused", "contingency_counts_fused"),
+                      ("seg", "contingency_counts"), ("family", "contingency_counts_family")):
         check(launches[name] + launches[f"{name}_wide"] == held[key],
               f"{label}: launches {launches}, held {held}")
 
@@ -2328,7 +2588,8 @@ def phase_tier(torch, cfg, clock_hz) -> dict:
         scores, labels, adj = step("decode_and_score", lambda: decode_and_score(model, scorer, z, gen))
         info = steps["decode_and_score"]
         finite = torch.isfinite(scores)
-        check(info["launches"]["contingency_counts_fused"] == 1 == info["held"]["fused"],
+        check(info["launches"]["node_scores_fused"] == 1 == info["held"]["score"]
+              and sum(info["launches"].values()) == 1,
               f"decode_and_score launches {info['launches']}")
         check(bool(finite.any()), "no decoded link DAG scored finite")
         best = int(torch.argmax(scores))
@@ -2370,8 +2631,9 @@ def phase_tier(torch, cfg, clock_hz) -> dict:
             population=s.island_population, iters=TIER_ISLAND_ITERS,
             exploit_repeats=TIER_EXPLOIT, device="cuda"))
         info = steps["island_cem"]
-        check(info["launches"]["contingency_counts_fused"] == TIER_ISLAND_ITERS + 1
-              == info["held"]["fused"], f"island CEM launches {info['launches']}")
+        check(info["launches"]["node_scores_fused"] == TIER_ISLAND_ITERS + 1
+              == info["held"]["score"] and sum(info["launches"].values()) == TIER_ISLAND_ITERS + 1,
+              f"island CEM launches {info['launches']}")
         check(all(b >= a for a, b in zip(isl.history, isl.history[1:])), "island history decreased")
         info.update(evals=isl.num_evals, evals_per_s=isl.num_evals / info["seconds_without_checks"],
                     best_bic=isl.best_score, best_bic_exact=check_best_exact(torch, scorer, isl, n))
@@ -2781,13 +3043,21 @@ def phase_small_tier(torch, clock_hz) -> dict:
         check(report["island_cem"] == "skipped (no checkpoint)", "sachs ran the latent half")
         out["sachs"] = check_small_search(torch, runner, report, kept, "sachs")
         launches = steps["sachs_search"]["launches"]
-        launches = launches["contingency_counts_fused"] + launches["contingency_counts_fused_wide"]
-        # table 2 chunks, the DP one chunk per node, the float64 re-scores of
-        # the optimum, the climb and the ground truth, on either route
-        check(launches == 2 + 11 + 3, f"sachs search: {launches} fused launches")
+        scores = launches["node_scores_fused"] + launches["node_scores_fused_wide"]
+        counts = launches["contingency_counts_fused"] + launches["contingency_counts_fused_wide"]
+        # the score entry: the table's 2 chunks and the DP's one chunk per
+        # node; the fused entry: the float64 re-scores of the optimum, the
+        # climb and the ground truth; each on either route
+        check(scores == 2 + 11 and counts == 3, f"sachs search: launches {launches}")
+        sachs_inputs = sachs_fused_inputs(torch, scorer.dataset.num_variables)
         out["sachs"]["fused"] = {
             key: time_fused_routes(torch, scorer, adj, f"sachs {key}", clock_hz)
-            for key, adj in sachs_fused_inputs(torch, scorer.dataset.num_variables).items()}
+            for key, adj in sachs_inputs.items()}
+        out["sachs"]["score"] = {
+            key: time_score_entry(torch, scorer, adj, f"sachs {key}", clock_hz,
+                                  chunk=TIER_HOLD_CANDIDATES)
+            for key, adj in sachs_inputs.items()}
+        del sachs_inputs
 
         # (c) synthetic_12 with one label: generate, split, fit, search
         cfg = small_config("synthetic_12")
@@ -2805,7 +3075,9 @@ def phase_small_tier(torch, clock_hz) -> dict:
     for key, info in steps.items():
         launches = info["launches"]
         print(f"small tier {key}: {info['seconds']:.3f} s ({info['seconds_without_checks']:.3f} s "
-              f"without the checks), fused {launches['contingency_counts_fused']} narrow + "
+              f"without the checks), score {launches['node_scores_fused']} narrow + "
+              f"{launches['node_scores_fused_wide']} wide (held {info['held']['score']}), "
+              f"fused {launches['contingency_counts_fused']} narrow + "
               f"{launches['contingency_counts_fused_wide']} wide (held {info['held']['fused']}), "
               f"peak {info['peak_mem_gib']:.3f} GiB")
     return out
@@ -2979,7 +3251,8 @@ def phase_large_tier(torch, clock_hz) -> dict:
                                                                 "relative_error", "decode_valid")}}
         check(out["hepar2"]["gp"]["model"] == "ExactGP", "the hepar2 GP is not the exact GP")
         launches = steps["large_search"]["launches"]
-        check(launches["contingency_counts_family"] > 0 and launches["contingency_counts_fused"] > 0
+        check(launches["contingency_counts_family"] > 0 and launches["node_scores_fused"] > 0
+              and launches["contingency_counts_fused"] > 0
               and launches["contingency_counts"] == launches["contingency_counts_wide"] == 0,
               f"hepar2 search launches {launches}")
         # the family narrow kernel at the binary climbs' shapes: an accept
@@ -3029,8 +3302,12 @@ def phase_large_tier(torch, clock_hz) -> dict:
                                              max_rows=DELTA_CHUNK)
         _, pop = sampler.sample_connected_dags(np.random.default_rng(SEED), LARGE_POPULATION, n,
                                                123, n, max_in_degree=s.max_parents)
-        four["fused"] = time_fused_routes(torch, scorer, torch.as_tensor(pop, device="cuda"),
-                                          "hepar2 four-state population", clock_hz)
+        pop = torch.as_tensor(pop, device="cuda")
+        four["fused"] = time_fused_routes(torch, scorer, pop, "hepar2 four-state population",
+                                          clock_hz)
+        four["score"] = time_score_entry(torch, scorer, pop, "hepar2 four-state population",
+                                         clock_hz, chunk=TIER_HOLD_CANDIDATES)
+        del pop
         out["four_states"] = four
         first, full = four["family_seg"]["first"], four["family_seg"]["full"]
         print(f"hepar2 four states (S = {S}, {nvidia_smi('name,power.limit')}): family entry "
@@ -3046,7 +3323,9 @@ def phase_large_tier(torch, clock_hz) -> dict:
     for key, info in steps.items():
         launches = info["launches"]
         print(f"large tier {key}: {info['seconds']:.3f} s ({info['seconds_without_checks']:.3f} s "
-              f"without the checks), fused {launches['contingency_counts_fused']} + "
+              f"without the checks), score {launches['node_scores_fused']} + "
+              f"{launches['node_scores_fused_wide']} wide, fused "
+              f"{launches['contingency_counts_fused']} + "
               f"{launches['contingency_counts_fused_wide']} wide, family "
               f"{launches['contingency_counts_family']} + "
               f"{launches['contingency_counts_family_wide']} wide, peak "
@@ -3054,10 +3333,13 @@ def phase_large_tier(torch, clock_hz) -> dict:
     return out
 
 
-def kernel_records(er: dict, decoded: dict, stage: dict, wide: dict, tier: dict, small: dict,
-                   large: dict, sweep: dict, launches_by_path: dict) -> list:
-    """The kernels' records, each route at its main path's inputs: the fused
-    entry on the decoded population (the latent search's), the family entry
+def kernel_records(search: dict, er: dict, decoded: dict, stage: dict, wide: dict, tier: dict,
+                   small: dict, large: dict, sweep: dict, launches_by_path: dict) -> list:
+    """The kernels' records, each route at its main path's inputs: the score
+    entry and the fused entry on the decoded population (the latent
+    search's), the score entry's wide route on phase 11's dense climb chunk
+    (its largest difference from the plain version over every held launch
+    and timed input), the family entry
     and the seg entry on the delta climb's first frontier at alarm width,
     the wide routes on phase 11's dense climb chunk and delta climb's first
     frontier; the other inputs' times beside them (phase 14's at link
@@ -3100,7 +3382,47 @@ def kernel_records(er: dict, decoded: dict, stage: dict, wide: dict, tier: dict,
     first, wide_first = family["first"], wide["family_seg"]["first"]
     chunk = wide["fused_climb_chunk"]
     shape = "F={F}, U={U}, S={S}, P={P}"
+    scored = {"decoded_population": decoded["score_entry"], **{
+        f"stage_{k}": v for k, v in stage["score_stage"].items()},
+        "barley_climb_chunk": wide["score_climb_chunk"],
+        **{f"sachs_{k}": v for k, v in small["sachs"]["score"].items()},
+        "hepar2_four_state_population": large["four_states"]["score"]}
+    helds = [search["held"], *[v["held"] for part in (stage["steps"], wide["steps"], tier["search"],
+                                                      small["steps"], large["steps"])
+                               for v in part.values()]]
+    score_err = max([h["score_err"] for h in helds] + [v["err"] for v in scored.values()])
+    score_ptxas = {k: v for k, v in ptxas_report().items()
+                   if "node_scores" in k or "ReduceScore" in k}
+
+    def score_main(rec, inputs):
+        return {"max_abs_err": score_err, "ms": rec["kernel_ms"], "plain_ms": rec["plain_ms"],
+                "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"], "inputs": inputs,
+                "bytes": rec["bytes"], "int_ops": rec["int_ops"],
+                "float_ops": rec.get("float_ops", 0.0)}
+
+    dec, barley = scored["decoded_population"], scored["barley_climb_chunk"]
     return [
+        record("node_scores_fused", score_main(dec, "decoded population"), None, {
+            "library": "none: no one PyTorch call computes the counts and the scores",
+            "tolerance": {"rtol": SCORE_RTOL, "atol": SCORE_ATOL, "between_launches": 0.0},
+            "held_calls": sum(h["score"] for h in helds),
+            "parent_path_ms": dec["parent_ms"], "entry_ms": dec["change_ms"],
+            "score_step_parent_ms": dec["step_parent_ms"],
+            "score_step_change_ms": dec["step_change_ms"],
+            "at_inputs": {k: v for k, v in scored.items() if v["route"] == "narrow"},
+            "alarm_dense_climb": stage["climb_compare"], "ptxas": score_ptxas,
+        }),
+        record("node_scores_fused_wide", score_main(
+            barley, f"dense climb chunk at barley width (R={barley['rows']}, S={barley['S']})"),
+            None, {
+                "library": "none: no one PyTorch call computes the counts and the scores",
+                "tiles": barley["tiles"], "parent_path_ms": barley["parent_ms"],
+                "entry_ms": barley["change_ms"],
+                "score_step_parent_ms": barley["step_parent_ms"],
+                "score_step_change_ms": barley["step_change_ms"],
+                "at_inputs": {k: v for k, v in scored.items() if v["route"] == "wide"},
+                "barley_dense_climb": wide["climb_compare"], "ptxas": score_ptxas,
+            }),
         record("contingency_counts_fused", {
             "max_abs_err": max(er["err_fused"], decoded["err_fused"], *errs["fused"]),
             "ms": decoded["fused_ms"], "plain_ms": decoded["fused_plain_ms"],
@@ -3255,13 +3577,13 @@ def main() -> int:
         **{f"stage_{name}": info["launches"] for name, info in stage["steps"].items()},
         **{f"pipeline_{name}": info["launches"] for name, info in pipeline["stages"].items()},
     }
-    # rows of 512 bins: the narrow fused and family kernels ran, no path
-    # called the seg entry, and no wide kernel ran
+    # rows of 512 bins: the narrow score, fused and family kernels ran, no
+    # path called the seg entry, and no wide kernel ran
     narrow_total = {k: sum(p[k] for p in launches_by_path.values()) for k in KERNELS}
-    check(narrow_total["contingency_counts_fused"] > 0
-          and narrow_total["contingency_counts_family"] > 0
-          and sum(narrow_total.values()) == narrow_total["contingency_counts_fused"]
-          + narrow_total["contingency_counts_family"], f"phases 1-10 launches {narrow_total}")
+    narrow_paths = ("node_scores_fused", "contingency_counts_fused", "contingency_counts_family")
+    check(all(narrow_total[k] > 0 for k in narrow_paths)
+          and sum(narrow_total.values()) == sum(narrow_total[k] for k in narrow_paths),
+          f"phases 1-10 launches {narrow_total}")
 
     t_wide = time.perf_counter()
     wide = phase_wide_rows(torch, scorer, clock_hz)
@@ -3292,8 +3614,8 @@ def main() -> int:
     print(f"large_tier ({nvidia_smi('name,power.limit')}):", json.dumps(large))
     launches_by_path.update({k: v["launches"] for k, v in large["steps"].items()})
     print(f"total {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": kernel_records(er, decoded, stage, wide, tier, small, large,
-                                                sweep, launches_by_path)}))
+    print(json.dumps({"kernels": kernel_records(search, er, decoded, stage, wide, tier, small,
+                                                large, sweep, launches_by_path)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

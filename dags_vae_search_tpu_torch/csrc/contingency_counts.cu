@@ -99,6 +99,31 @@
 // fused and family wide kernels recompute the row's configurations for
 // every tile; that integer work is small beside the output they write,
 // R*S*4 bytes, which bounds this route.
+//
+// The score entry (node_scores_fused_*).  The fused entry's counts exist to
+// be reduced to node scores (bic_pallas.py:179 hands them to
+// bic_xla.node_scores_from_counts), and writing R*S counts for that
+// reduction to read back costs more than counting them.  The score entry
+// counts a (candidate, node) row exactly as the fused entry does, then,
+// still on chip, reduces the row's bins to its node score and writes one
+// float a row: for the likelihood metrics sum c * log(c / n_j) over the
+// cells with c > 0 (the ratio form of ops/bic_torch.py, accurate in
+// float32), then the penalty from q and the child's cardinality; for BDeu
+// lgamma over the cells and configurations that hold a count (every other
+// term of the plain version is exactly 0).  The narrow kernel does it in
+// the warp that owns the row, after its count (a policy in place of the
+// store: StoreCounts / ReduceScore).  The wide kernel tiles a row at whole
+// configurations (a multiple of r_max bins, since r_max need not divide a
+// power of two), skips the tiles past the row's reach (they hold no
+// count), reduces each tile in its block, and writes R x tiles partials
+// that a second small kernel sums in tile order.  (Holding a row's tiles
+// in one thread-block cluster and summing them from distributed shared
+// memory gave the same floats 2.9x slower on the H100 at S = 65,536:
+// PERF.md.)  Every sum is over a fixed order, so two launches give
+// bit-equal scores.
+// Bound: the inputs read once and R floats written, or the integer work of
+// the count, whichever is larger; far below the count entry's R*S*4 bytes
+// at S >= 12,288.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -358,15 +383,131 @@ __device__ __forceinline__ void count_row(const int2* parents, int num_parents,
   }
 }
 
+// ---- the score epilogue ---------------------------------------------------
+
+// Metrics, numbered as ops/bic_kernel.py::SCORE_METRICS numbers them.
+constexpr int kBic = 0, kAic = 1, kLoglik = 2, kBde = 3;
+
+// What the score epilogue reads beside the counts, and where it writes.
+struct ScoreArgs {
+  const float* q;        // f32[R]: the row's configuration-space size
+  const int32_t* cards;  // int32[n]: cardinality of each variable
+  float* out;            // f32[R]: node scores
+  int metric;
+  float half_log_n;  // log(N) / 2: BIC's penalty per parameter
+  float iss;         // BDeu's imaginary sample size
+};
+
+// Sum over the warp's lanes; every lane gets the same bits.
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int off = kWarp / 2; off > 0; off /= 2) x += __shfl_xor_sync(kFull, x, off);
+  return x;
+}
+
+// BDeu's priors of one row: a_jk = iss / (q * card), a_j = iss / q.
+struct RowPrior {
+  float a_jk, a_j;
+};
+
+__device__ __forceinline__ RowPrior row_prior(const ScoreArgs& sa, int64_t row, int child) {
+  const float q = __ldg(sa.q + row);
+  const float card = static_cast<float>(__ldg(sa.cards + child));
+  return RowPrior{__fdiv_rn(sa.iss, __fmul_rn(q, card)), __fdiv_rn(sa.iss, q)};
+}
+
+// The score terms of configurations j = first, first + step, ... below
+// `configs`, whose r_max bins are bins[j * r_max + k]: c * log(c / n_j) over
+// the cells with c > 0, or for BDeu lgamma(a_jk + c) - lgamma(a_jk) over
+// them and lgamma(a_j) - lgamma(a_j + n_j) over the configurations with
+// n_j > 0.  Counts below 2^24 convert to float exactly.
+template <bool kBdeu>
+__device__ __forceinline__ float score_terms(const uint32_t* bins, int configs, int first,
+                                             int step, int r_max, RowPrior prior) {
+  float acc = 0.0f;
+  for (int j = first; j < configs; j += step) {
+    const uint32_t* b = bins + j * r_max;
+    uint32_t total = 0u;
+    for (int k = 0; k < r_max; ++k) total += b[k];
+    if (total == 0u) continue;
+    const float n_j = static_cast<float>(total);
+    for (int k = 0; k < r_max; ++k) {
+      const uint32_t c = b[k];
+      if (c == 0u) continue;
+      const float cf = static_cast<float>(c);
+      if (kBdeu) {
+        acc += lgammaf(prior.a_jk + cf) - lgammaf(prior.a_jk);
+      } else {
+        acc += __fmul_rn(cf, logf(__fdiv_rn(cf, n_j)));
+      }
+    }
+    if (kBdeu) acc += lgammaf(prior.a_j) - lgammaf(prior.a_j + n_j);
+  }
+  return acc;
+}
+
+// A row's node score from the sum of its terms: BIC ll - (card - 1) q
+// log(N) / 2, AIC ll - (card - 1) q, the log-likelihood and BDeu the sum.
+__device__ __forceinline__ float finish_score(const ScoreArgs& sa, int64_t row, int child,
+                                              float sum) {
+  if (sa.metric == kLoglik || sa.metric == kBde) return sum;
+  const float card = static_cast<float>(__ldg(sa.cards + child));
+  const float df = __fmul_rn(card - 1.0f, __ldg(sa.q + row));
+  return __fsub_rn(sum, sa.metric == kAic ? df : __fmul_rn(df, sa.half_log_n));
+}
+
+// The end of a row in the narrow kernel, after its count: store the S bins
+// (the count entries) ...
+struct StoreCounts {
+  float* out;  // f32[R, S]
+
+  __device__ __forceinline__ void lane_minor(uint32_t* priv, int span, int64_t row, int child,
+                                             const Layout& g, int lane) const {
+    const int S = g.q_cap * g.r_max;
+    warp_store_lane_minor(priv, span, out + row * static_cast<int64_t>(S), S, lane);
+  }
+  __device__ __forceinline__ void bins(uint32_t* hist, int span, int64_t row, int child,
+                                       const Layout& g, int lane) const {
+    const int S = g.q_cap * g.r_max;
+    warp_store_bins(hist, out + row * static_cast<int64_t>(S), S, lane);
+  }
+};
+
+// ... or reduce them to the row's node score (the score entry).  Every
+// cell of the row lies below span, a multiple of r_max.
+template <bool kBdeu>
+struct ReduceScore {
+  ScoreArgs sa;
+
+  __device__ __forceinline__ void bins(uint32_t* hist, int span, int64_t row, int child,
+                                       const Layout& g, int lane) const {
+    const RowPrior prior = kBdeu ? row_prior(sa, row, child) : RowPrior{0.0f, 0.0f};
+    const float sum =
+        warp_sum(score_terms<kBdeu>(hist, span / g.r_max, lane, kWarp, g.r_max, prior));
+    if (lane == 0) sa.out[row] = finish_score(sa, row, child, sum);
+  }
+  // Lane-private bins (span <= 32): lane s folds the 32 copies of bin s,
+  // and the totals take the first span words once every copy is read.
+  __device__ __forceinline__ void lane_minor(uint32_t* priv, int span, int64_t row, int child,
+                                             const Layout& g, int lane) const {
+    const uint32_t total = lane_minor_sum(priv, lane, span, lane);
+    __syncwarp();
+    if (lane < span) priv[lane] = total;
+    __syncwarp();
+    bins(priv, span, row, child, g, lane);
+  }
+};
+
 // The narrow route: one warp a row, its histogram in the warp's region of
-// shared memory (region_words words), then its parent list (list_len int2).
-// At most 40 registers, so 6 blocks of 8 warps fit an SM (64 registers held
-// the fused kernel to 4 and cost more time than the spill-free cap does).
-template <typename Rows, typename Code>
+// shared memory (region_words words), then its parent list (list_len int2);
+// the epilogue `epi` ends the row.  At most 40 registers, so 6 blocks of 8
+// warps fit an SM (64 registers held the fused kernel to 4 and cost more
+// time than the spill-free cap does).
+template <typename Rows, typename Code, typename Epi>
 __global__ void __launch_bounds__(kMaxWarps * kWarp, 6)
 contingency_counts_rows_kernel(Rows rows, const Code* __restrict__ codes_cm,
-                               const uint32_t* __restrict__ w, float* __restrict__ out,
-                               int64_t R, Layout g, int region_words, int small_span) {
+                               const uint32_t* __restrict__ w, Epi epi, int64_t R, Layout g,
+                               int region_words, int small_span) {
   extern __shared__ __align__(16) uint32_t smem[];
   const int warps = blockDim.x / kWarp;
   const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
@@ -380,21 +521,21 @@ contingency_counts_rows_kernel(Rows rows, const Code* __restrict__ codes_cm,
   // every cell of this row lies below span
   const int span = (min(reach, g.q_cap - 1) + 1) * g.r_max;
   const int S = g.q_cap * g.r_max;
-  const Code* child_col = codes_cm + static_cast<int64_t>(rows.child(row)) * g.ldc;
-  float* out_row = out + row * static_cast<int64_t>(S);
+  const int child = rows.child(row);
+  const Code* child_col = codes_cm + static_cast<int64_t>(child) * g.ldc;
 
   if (span <= small_span) {
     warp_zero(hist, span * kWarp, lane);
     __syncwarp();
     count_row<true>(parents, num_parents, codes_cm, child_col, w, g, hist, span, lane);
     __syncwarp();
-    warp_store_lane_minor(hist, span, out_row, S, lane);
+    epi.lane_minor(hist, span, row, child, g, lane);
   } else {
     warp_zero(hist, round_up4(S), lane);
     __syncwarp();
     count_row<false>(parents, num_parents, codes_cm, child_col, w, g, hist, S, lane);
     __syncwarp();
-    warp_store_bins(hist, out_row, S, lane);
+    epi.bins(hist, span, row, child, g, lane);
   }
 }
 
@@ -496,6 +637,94 @@ void wide_tiles(int S, int* tile, int* tiles) {
   *tiles = static_cast<int>((static_cast<int64_t>(S) + *tile - 1) / *tile);
 }
 
+// The score entry's tiles: whole configurations, at most kWideTileBins bins
+// (at least one configuration), as even as whole configurations allow;
+// every tile starts below q_cap.  ops/bic_kernel.py::score_tiles mirrors it.
+void score_tiles(int q_cap, int r_max, int* configs, int* tiles) {
+  const int most = kWideTileBins / r_max > 1 ? kWideTileBins / r_max : 1;
+  *tiles = (q_cap + most - 1) / most;
+  *configs = (q_cap + *tiles - 1) / *tiles;
+}
+
+// The score entry's wide route: block b counts row b / tiles into the bins
+// of its tile t = b % tiles (configurations [t * configs, ...), whole), sums
+// the tile's score terms over the block (each warp's, then the warps' in
+// order), and writes the score when the row has one tile, else its sum to
+// partials[row * tiles + t] for node_scores_finish_kernel.  A tile past the
+// row's reach holds no count: it adds 0 without a scan.  Shared memory:
+// round_up4(configs * r_max) bins, then the parent list.
+template <typename Code, bool kBdeu>
+__global__ void __launch_bounds__(kWideThreads)
+node_scores_wide_kernel(StrideRows rows, const Code* __restrict__ codes_cm,
+                        const uint32_t* __restrict__ w, ScoreArgs sa,
+                        float* __restrict__ partials, Layout g, int configs, int tiles) {
+  extern __shared__ __align__(16) uint32_t smem[];
+  __shared__ int num_parents, row_reach;
+  __shared__ float warp_part[kWideThreads / kWarp];
+  uint32_t* hist = smem;
+  int2* parents = reinterpret_cast<int2*>(smem + round_up4(configs * g.r_max));
+  const int64_t row = static_cast<int64_t>(blockIdx.x) / tiles;
+  const int t = static_cast<int>(blockIdx.x % tiles);
+  const int j0 = t * configs;
+  const int held = min(configs, g.q_cap - j0);
+  const int child = rows.child(row);
+  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
+
+  if (warp == 0) {
+    int reach;
+    const int count = rows.parent_list(row, g, parents, lane, &reach);
+    if (lane == 0) {
+      num_parents = count;
+      row_reach = reach;
+    }
+  }
+  block_zero(hist, round_up4(held * g.r_max));
+  __syncthreads();
+
+  // the configurations of this tile that can hold a count (uniform)
+  const int live = min(held, min(row_reach, g.q_cap - 1) + 1 - j0);
+  float x = 0.0f;
+  if (live > 0) {
+    const int t0 = j0 * g.r_max, len = live * g.r_max, np = num_parents;
+    const Code* child_col = codes_cm + static_cast<int64_t>(child) * g.ldc;
+    for (int u = threadIdx.x; u < g.U; u += blockDim.x) {
+      int cfg = 0;  // below list_len * S < 2^31: every term is below S
+      for (int p = 0; p < np; ++p) {
+        const int2 par = parents[p];
+        cfg += par.y * static_cast<int>(__ldg(codes_cm + par.x + u));
+      }
+      const int cell = min(cfg, g.q_cap - 1) * g.r_max + static_cast<int>(__ldg(child_col + u));
+      tile_add(hist, cell, t0, len, __ldg(w + u));
+    }
+    __syncthreads();
+    const RowPrior prior = kBdeu ? row_prior(sa, row, child) : RowPrior{0.0f, 0.0f};
+    x = score_terms<kBdeu>(hist, live, threadIdx.x, blockDim.x, g.r_max, prior);
+  }
+  x = warp_sum(x);
+  if (lane == 0) warp_part[warp] = x;
+  __syncthreads();
+  if (warp == 0) x = warp_sum(lane < kWideThreads / kWarp ? warp_part[lane] : 0.0f);
+
+  if (threadIdx.x == 0) {
+    if (tiles == 1) {
+      sa.out[row] = finish_score(sa, row, child, x);
+    } else {
+      partials[row * tiles + t] = x;
+    }
+  }
+}
+
+// The partials' second pass: row r's tiles summed in tile order, then the
+// metric's penalty.  One thread a row.
+__global__ void node_scores_finish_kernel(const float* __restrict__ partials, ScoreArgs sa,
+                                          int64_t R, int n, int tiles) {
+  const int64_t row = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (row >= R) return;
+  float sum = 0.0f;
+  for (int t = 0; t < tiles; ++t) sum += partials[row * tiles + t];
+  sa.out[row] = finish_score(sa, row, static_cast<int>(row % n), sum);
+}
+
 // One block per (row, tile); 0 blocks if that count leaves the grid's range.
 int64_t wide_blocks(int64_t R, int tiles) {
   const int64_t blocks = R * tiles;
@@ -515,8 +744,8 @@ cudaError_t allow_shared(Kernel kernel, size_t smem) {
                               static_cast<int>(smem));
 }
 
-template <typename Rows, typename Code>
-int launch_rows(const Rows& rows, const void* codes_cm, const void* w, void* out, int64_t R,
+template <typename Rows, typename Code, typename Epi>
+int launch_rows(const Rows& rows, const void* codes_cm, const void* w, const Epi& epi, int64_t R,
                 const Layout& g, int small_span, cudaStream_t stream) {
   const int S = g.q_cap * g.r_max;
   const int lane_minor_words = kWarp * (small_span < S ? small_span : S);
@@ -525,13 +754,13 @@ int launch_rows(const Rows& rows, const void* codes_cm, const void* w, void* out
   const int warps = warps_for(region_words * 4 + list_bytes);
   if (warps == 0) return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = static_cast<size_t>(warps) * (region_words * 4 + list_bytes);
-  cudaError_t err = allow_shared(contingency_counts_rows_kernel<Rows, Code>, smem);
+  cudaError_t err = allow_shared(contingency_counts_rows_kernel<Rows, Code, Epi>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int64_t blocks = (R + warps - 1) / warps;
-  contingency_counts_rows_kernel<Rows, Code><<<static_cast<unsigned>(blocks), warps * kWarp,
-                                               smem, stream>>>(
-      rows, static_cast<const Code*>(codes_cm), static_cast<const uint32_t*>(w),
-      static_cast<float*>(out), R, g, region_words, small_span);
+  contingency_counts_rows_kernel<Rows, Code, Epi><<<static_cast<unsigned>(blocks), warps * kWarp,
+                                                    smem, stream>>>(
+      rows, static_cast<const Code*>(codes_cm), static_cast<const uint32_t*>(w), epi, R, g,
+      region_words, small_span);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -562,13 +791,56 @@ int launch_any(const Rows& rows, const void* codes_cm, int code_bytes, const voi
   const bool wide = small_span < 0;
   if (code_bytes == 1) {
     return wide ? launch_rows_wide<Rows, uint8_t>(rows, codes_cm, w, out, R, g, stream)
-                : launch_rows<Rows, uint8_t>(rows, codes_cm, w, out, R, g, small_span, stream);
+                : launch_rows<Rows, uint8_t>(rows, codes_cm, w,
+                                             StoreCounts{static_cast<float*>(out)}, R, g,
+                                             small_span, stream);
   }
   if (code_bytes == 4) {
     return wide ? launch_rows_wide<Rows, int32_t>(rows, codes_cm, w, out, R, g, stream)
-                : launch_rows<Rows, int32_t>(rows, codes_cm, w, out, R, g, small_span, stream);
+                : launch_rows<Rows, int32_t>(rows, codes_cm, w,
+                                             StoreCounts{static_cast<float*>(out)}, R, g,
+                                             small_span, stream);
   }
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The score entry on either route, for one code type and one metric kind;
+// small_span < 0 asks for the wide route, whose tiles are summed from
+// `partials` (f32[R * tiles], unused at one tile).
+template <typename Code, bool kBdeu>
+int launch_scores(const StrideRows& rows, const void* codes_cm, const void* w,
+                  const ScoreArgs& sa, void* partials, int64_t R, const Layout& g, int small_span,
+                  cudaStream_t stream) {
+  if (small_span >= 0) {
+    // the lane-private bins fold into one bin a lane
+    if (small_span > kWarp) return static_cast<int>(cudaErrorInvalidValue);
+    return launch_rows<StrideRows, Code, ReduceScore<kBdeu>>(rows, codes_cm, w,
+                                                             ReduceScore<kBdeu>{sa}, R, g,
+                                                             small_span, stream);
+  }
+  int configs, tiles;
+  score_tiles(g.q_cap, g.r_max, &configs, &tiles);
+  const int64_t blocks = wide_blocks(R, tiles);
+  // dynamic bins and list, and the kernel's static words
+  const size_t smem = static_cast<size_t>(round_up4(configs * g.r_max)) * 4 +
+                      rows.list_len() * sizeof(int2);
+  if (blocks == 0 || smem + 256 > static_cast<size_t>(kMaxSharedBytes) ||
+      (tiles > 1 && partials == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  float* part = static_cast<float*>(partials);
+  cudaError_t err = allow_shared(node_scores_wide_kernel<Code, kBdeu>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  node_scores_wide_kernel<Code, kBdeu><<<static_cast<unsigned>(blocks), kWideThreads, smem,
+                                         stream>>>(rows, static_cast<const Code*>(codes_cm),
+                                                   static_cast<const uint32_t*>(w), sa, part, g,
+                                                   configs, tiles);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || tiles == 1) return static_cast<int>(err);
+  constexpr int kFinishThreads = 256;
+  node_scores_finish_kernel<<<static_cast<unsigned>((R + kFinishThreads - 1) / kFinishThreads),
+                              kFinishThreads, 0, stream>>>(part, sa, R, rows.n, tiles);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // ---- the family entry's narrow route: one family over a cluster ----------
@@ -848,6 +1120,65 @@ extern "C" int contingency_counts_fused_wide_launch(const void* strides_t, const
                                                     int r_max, void* stream) {
   return launch_any(StrideRows{static_cast<const float*>(strides_t), n}, codes_cm, code_bytes, w,
                     out, R, Layout{U, ldc, q_cap, r_max}, -1, static_cast<cudaStream_t>(stream));
+}
+
+namespace {
+
+// The score entry for either code type and metric; small_span < 0 asks for
+// the wide route.
+int launch_scores_any(const void* strides_t, const void* q, const void* cards,
+                      const void* codes_cm, int code_bytes, const void* w, void* out,
+                      void* partials, int64_t R, int n, int U, int ldc, int q_cap, int r_max,
+                      int metric, float half_log_n, float iss, int small_span, void* stream) {
+  if (metric < kBic || metric > kBde) return static_cast<int>(cudaErrorInvalidValue);
+  const StrideRows rows{static_cast<const float*>(strides_t), n};
+  const ScoreArgs sa{static_cast<const float*>(q), static_cast<const int32_t*>(cards),
+                     static_cast<float*>(out), metric, half_log_n, iss};
+  const Layout g{U, ldc, q_cap, r_max};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool bde = metric == kBde;
+  if (code_bytes == 1) {
+    return bde ? launch_scores<uint8_t, true>(rows, codes_cm, w, sa, partials, R, g, small_span, s)
+               : launch_scores<uint8_t, false>(rows, codes_cm, w, sa, partials, R, g, small_span, s);
+  }
+  if (code_bytes == 4) {
+    return bde ? launch_scores<int32_t, true>(rows, codes_cm, w, sa, partials, R, g, small_span, s)
+               : launch_scores<int32_t, false>(rows, codes_cm, w, sa, partials, R, g, small_span, s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+}  // namespace
+
+// The score entry's narrow route: the rows of contingency_counts_fused_launch
+// (strides_t, codes_cm, w, R, n, U, ldc, q_cap, r_max as there), each reduced
+// to its node score out[r] (f32[R]) instead of stored.  q: f32[R], row b*n +
+// i's configuration-space size (the product of its parents' cards); cards:
+// int32[n]; metric 0 BIC, 1 AIC, 2 log-likelihood, 3 BDeu; half_log_n =
+// log(N) / 2; iss BDeu's imaginary sample size.  Rows whose cells all lie
+// below small_span (at most 32) take lane-private bins.
+extern "C" int node_scores_fused_launch(const void* strides_t, const void* q, const void* cards,
+                                        const void* codes_cm, int code_bytes, const void* w,
+                                        void* out, int64_t R, int n, int U, int ldc, int q_cap,
+                                        int r_max, int metric, float half_log_n, float iss,
+                                        int small_span, void* stream) {
+  return launch_scores_any(strides_t, q, cards, codes_cm, code_bytes, w, out, nullptr, R, n, U,
+                           ldc, q_cap, r_max, metric, half_log_n, iss,
+                           small_span < 0 ? 0 : small_span, stream);
+}
+
+// The score entry's wide route: the contract of node_scores_fused_launch
+// (small_span aside) for any q_cap and r_max whose tile (score_tiles) fits a
+// block, with R * tiles blocks below 2^31.  With more than one tile a row's
+// tile sums go through partials, f32[R * tiles] of scratch.
+extern "C" int node_scores_fused_wide_launch(const void* strides_t, const void* q,
+                                             const void* cards, const void* codes_cm,
+                                             int code_bytes, const void* w, void* out,
+                                             void* partials, int64_t R, int n, int U, int ldc,
+                                             int q_cap, int r_max, int metric, float half_log_n,
+                                             float iss, void* stream) {
+  return launch_scores_any(strides_t, q, cards, codes_cm, code_bytes, w, out, partials, R, n, U,
+                           ldc, q_cap, r_max, metric, half_log_n, iss, -1, stream);
 }
 
 // The family entry's narrow route.  children: int32[F] in [0, n); parents:

@@ -5,12 +5,18 @@ compressed to its U unique rows with multiplicities ``w``; every counted
 row gets the flat cell ``seg = clip(cfg, 0, q_cap-1) * r_max + child`` of
 each unique row, and its counts are the weighted histogram of ``seg`` over
 S = q_cap * r_max cells.  Source of every kernel:
-``csrc/contingency_counts.cu``.  Three entries:
+``csrc/contingency_counts.cu``.  Four entries:
 
+- :func:`node_scores_fused`, the score entry, which ``BicScorer`` scores
+  through: the fused entry's count of each (candidate, node) row, reduced
+  to the row's node score on chip (every metric of
+  ``bic_torch.node_scores_from_counts``), one float a row written, so the
+  [B, n, q_cap, r_max] counts never reach device memory.
 - :func:`contingency_counts_fused` computes the cells inside the kernel from
   the parent strides of (candidate, node) rows and the column-major codes
   (:func:`column_major_codes`), so the [B, n, U] cell table is never built.
-  :func:`contingency_counts`, which ``BicScorer`` calls, goes through it.
+  :func:`contingency_counts` (``BicScorer.counts``, for the float64 exact
+  scores) goes through it.
 - :func:`contingency_counts_family` computes them inside the kernel from
   (child, padded parent list) families, so the [F, U] cell table of
   :func:`family_cells` is never built.  ``FamilyBatchScorer`` (the delta
@@ -24,10 +30,10 @@ S = q_cap * r_max cells.  Source of every kernel:
 Each entry has two routes, chosen by :func:`route`: the narrow kernel (one
 warp per row; for the family entry one cluster per family) for rows of at
 most ``NARROW_MAX_BINS`` bins, S tiled over blocks (the wide kernel:
-:func:`contingency_counts_wide`,
-:func:`contingency_counts_fused_wide`, :func:`contingency_counts_family_wide`)
-for wider rows.  Each route's wrapper counts its own launches in
-``.launches``.
+:func:`contingency_counts_wide`, :func:`contingency_counts_fused_wide`,
+:func:`node_scores_fused_wide`, :func:`contingency_counts_family_wide`)
+for wider rows; the score entry takes the fused entry's route.  Each
+route's wrapper counts its own launches in ``.launches``.
 
 On a CUDA tensor each wrapper launches its kernel or raises; on a CPU tensor
 it runs its plain torch version (``*_plain``), which has no bound on S.  The
@@ -48,6 +54,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 
 import torch
 
@@ -82,6 +89,8 @@ H100_SMS = 132
 #: route sweep at 698 and 5,000 unique rows (PERF.md); it moved no more than
 #: 2x between the two, so it does not follow U.
 NARROW_MAX_BINS = {"fused": 2048, "seg": 512, "family": 4096}
+#: The score entry's metrics, in the kernel's numbering.
+SCORE_METRICS = ("bic", "aic", "loglik", "bde")
 
 
 def _round_up(x: int, m: int) -> int:
@@ -375,6 +384,169 @@ def contingency_counts_fused_wide(
 contingency_counts_fused_wide.launches = 0
 
 
+# ---- the score entry -------------------------------------------------------
+
+
+def score_tiles(q_cap: int, r_max: int) -> tuple:
+    """(configurations a tile, tiles a row) of the score entry's wide
+    kernel (``score_tiles`` in the source): whole configurations, at most
+    ``WIDE_TILE_BINS`` bins (at least one configuration), as even as whole
+    configurations allow."""
+    most = max(WIDE_TILE_BINS // r_max, 1)
+    tiles = -(-q_cap // most)
+    return -(-q_cap // tiles), tiles
+
+
+def _score_inputs(adj, codes_u, cards, r_max, codes_cm):
+    """The kernels' inputs of candidates ``adj``: row-major strides
+    f32[B, n, n], config sizes q f32[B, n] and the column-major codes."""
+    if adj.dim() != 3 or adj.shape[1] != adj.shape[2] or tuple(cards.shape) != adj.shape[1:2]:
+        raise ValueError(f"want adj [B, n, n] and cards [n], got {tuple(adj.shape)}, "
+                         f"{tuple(cards.shape)}")
+    strides, q = bic_torch.parent_config_strides(adj, cards)
+    if codes_cm is None:
+        codes_cm = column_major_codes(codes_u, r_max)
+    return strides.transpose(1, 2).contiguous(), q.contiguous(), codes_cm
+
+
+def _scores_plain(strides_t, q, codes_cm, w, cards, q_cap, r_max, num_cases, metric, iss):
+    b, n, _ = strides_t.shape
+    counts = contingency_counts_fused_plain(strides_t, codes_cm, w, q_cap, r_max)
+    return bic_torch.node_scores_from_counts(
+        counts.reshape(b, n, q_cap, r_max), q, cards, num_cases, metric, iss)
+
+
+def node_scores_fused_plain(adj, codes_u, weights, cards, q_cap, r_max, num_cases,
+                            metric="bic", iss=1.0, codes_cm=None) -> tuple:
+    """The score entry's function in plain torch: the fused entry's plain
+    counts, then ``bic_torch.node_scores_from_counts``.  Arguments and
+    result as :func:`node_scores_fused`."""
+    strides_t, q, codes_cm = _score_inputs(adj, codes_u, cards, r_max, codes_cm)
+    return _scores_plain(strides_t, q, codes_cm, weights, cards, q_cap, r_max, num_cases,
+                         metric, iss), q
+
+
+def _check_scores(strides_t, codes_cm, w, cards, q_cap, r_max, num_cases, metric) -> None:
+    _check_fused(strides_t, codes_cm, w, q_cap, r_max)
+    if metric not in SCORE_METRICS:
+        raise ValueError(f"unknown metric {metric!r}")
+    if num_cases < 1:
+        raise ValueError(f"num_cases={num_cases}: no data")
+    if cards.dtype != torch.int32 or cards.device != strides_t.device:
+        raise ValueError(f"want int32 cards on {strides_t.device}, got {cards.dtype} on "
+                         f"{cards.device}")
+    if strides_t.device.type == "cuda":
+        if not cards.is_contiguous():
+            raise ValueError("cards must be contiguous")
+        configs, tiles = score_tiles(q_cap, r_max)
+        if 4 * _round_up(configs * r_max, 4) + 8 * strides_t.shape[1] + 256 > MAX_SHARED_BYTES \
+                or strides_t.shape[0] * strides_t.shape[1] * tiles >= 2**31:
+            raise ValueError(f"q_cap={q_cap}, r_max={r_max}: a wide score tile of {configs} "
+                             f"configurations does not fit the kernel")
+
+
+def _launch_scores(strides_t, q, codes_cm, w, cards, q_cap, r_max, num_cases, metric, iss,
+                   small_span=SMALL_SPAN, wide=False) -> torch.Tensor:
+    """The narrow kernel, or the wide one (its tile sums through a scratch
+    of R x tiles floats); node scores f32[B, n], no count."""
+    b, n, _ = strides_t.shape
+    ptrs = [ctypes.c_void_p] * 4 + [ctypes.c_int] + [ctypes.c_void_p] * 2
+    ints = [ctypes.c_int64] + [ctypes.c_int] * 5 + [ctypes.c_int, ctypes.c_float, ctypes.c_float]
+    w_int = w.to(torch.int32)  # the kernel reads the multiplicities as uint32
+    out = torch.empty((b, n), dtype=torch.float32, device=strides_t.device)
+    head = (strides_t.data_ptr(), q.data_ptr(), cards.data_ptr(), codes_cm.data_ptr(),
+            codes_cm.element_size(), w_int.data_ptr(), out.data_ptr())
+    tail = (b * n, n, w.shape[0], codes_cm.shape[1], q_cap, r_max, SCORE_METRICS.index(metric),
+            math.log(float(num_cases)) / 2.0, iss)
+    if wide:
+        name = "node_scores_fused_wide_launch"
+        fn = _function(name, ptrs + [ctypes.c_void_p] + ints + [ctypes.c_void_p])
+        _, tiles = score_tiles(q_cap, r_max)
+        partials = (torch.empty(b * n * tiles, dtype=torch.float32, device=out.device)
+                    if tiles > 1 else None)
+        args = (*head, None if partials is None else partials.data_ptr(), *tail)
+    else:
+        name = "node_scores_fused_launch"
+        fn = _function(name, ptrs + ints + [ctypes.c_int, ctypes.c_void_p])
+        args = (*head, *tail, small_span)
+    with torch.cuda.device(strides_t.device):
+        err = fn(*args, _stream(strides_t))
+    if err != 0:
+        raise RuntimeError(f"{name.removesuffix('_launch')} kernel launch failed: cudaError {err}")
+    return out
+
+
+def _score_args(adj, codes_u, weights, cards, q_cap, r_max, num_cases, metric, iss, codes_cm):
+    """The checked arguments of :func:`_launch_scores` and
+    :func:`_scores_plain` for one call of the score entry."""
+    strides_t, q, codes_cm = _score_inputs(adj, codes_u, cards, r_max, codes_cm)
+    cards = cards.to(torch.int32)
+    _check_scores(strides_t, codes_cm, weights, cards, q_cap, r_max, num_cases, metric)
+    return strides_t, q, codes_cm, weights, cards, q_cap, r_max, num_cases, metric, iss
+
+
+def node_scores_fused(
+    adj: torch.Tensor,  # float32[B, n, n], adj[b, j, i] = 1 iff j is a parent of i
+    codes_u: torch.Tensor,  # int32[U, n] unique dataset rows
+    weights: torch.Tensor,  # float32[U] multiplicities
+    cards: torch.Tensor,  # int32[n]
+    q_cap: int,
+    r_max: int,
+    num_cases: int,
+    metric: str = "bic",
+    iss: float = 1.0,
+    codes_cm: torch.Tensor | None = None,
+) -> tuple:
+    """Node scores float32[B, n] (``metric`` in ``SCORE_METRICS``, BDeu
+    with imaginary sample size ``iss``; no feasibility mask) and config
+    sizes q float32[B, n] of candidates ``adj`` over the unique rows: on a
+    CUDA tensor the score kernel (the narrow one, or the wide one where
+    :func:`route` sends the fused entry's rows) counts each (candidate,
+    node) row and reduces its counts to the score on chip, so no
+    [B, n, q_cap, r_max] counts are written; on a CPU tensor the plain
+    version.  ``codes_cm`` is ``column_major_codes(codes_u, r_max)`` where
+    the caller keeps it.  Codes must lie in [0, r_max).  Float32 sums in
+    another order than the plain version's: within 1e-5 relative or 1e-3
+    absolute of it; bit-equal from launch to launch.
+    ``node_scores_fused.launches`` counts launches of the narrow kernel."""
+    args = _score_args(adj, codes_u, weights, cards, q_cap, r_max, num_cases, metric, iss,
+                       codes_cm)
+    strides_t, q = args[:2]
+    if strides_t.device.type == "cpu":
+        return _scores_plain(*args), q
+    S = q_cap * r_max
+    if route("fused", S, fused_warp_bytes(S, strides_t.shape[1])) == "wide":
+        return _launch_scores_wide(*args), q
+    out = _launch_scores(*args)
+    node_scores_fused.launches += 1
+    return out, q
+
+
+node_scores_fused.launches = 0
+
+
+def _launch_scores_wide(*args) -> torch.Tensor:
+    out = _launch_scores(*args, wide=True)
+    node_scores_fused_wide.launches += 1
+    return out
+
+
+def node_scores_fused_wide(adj, codes_u, weights, cards, q_cap, r_max, num_cases, metric="bic",
+                           iss=1.0, codes_cm=None) -> tuple:
+    """:func:`node_scores_fused`'s function through the wide kernel (any
+    S whose tile fits a block) on a CUDA tensor, the plain version on a CPU
+    tensor.  ``node_scores_fused_wide.launches`` counts its launches."""
+    args = _score_args(adj, codes_u, weights, cards, q_cap, r_max, num_cases, metric, iss,
+                       codes_cm)
+    q = args[1]
+    if q.device.type == "cpu":
+        return _scores_plain(*args), q
+    return _launch_scores_wide(*args), q
+
+
+node_scores_fused_wide.launches = 0
+
+
 # ---- the family entry ------------------------------------------------------
 
 
@@ -640,8 +812,10 @@ def score_dags_kernel(
     max_parents: int | None = None,
 ) -> torch.Tensor:
     """Same contract as ``bic_torch.score_dags`` on the unique-row
-    compressed dataset (codes_u, weights) and the true case count."""
-    counts, q = contingency_counts(adj, codes_u, weights, cards, q_cap, r_max)
-    total = bic_torch.node_scores_from_counts(counts, q, cards, num_cases, metric).sum(-1)
+    compressed dataset (codes_u, weights) and the true case count, through
+    :func:`node_scores_fused`."""
+    node_scores, q = node_scores_fused(adj, codes_u, weights, cards, q_cap, r_max, num_cases,
+                                       metric)
+    total = node_scores.sum(-1)
     feasible = bic_torch.feasible_mask(adj, q, q_cap, max_parents)
     return torch.where(feasible, total, -torch.inf)

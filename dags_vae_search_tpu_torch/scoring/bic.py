@@ -43,8 +43,10 @@ class BicScorer:
     q_cap: static parent-configuration cap; defaults to
       ``r_max ** min(max_parents, n-1)`` capped at 4096.
     impl: 'auto' ('kernel' on CUDA, 'plain' elsewhere), 'kernel' (unique
-      rows through ``ops.bic_kernel``, whose wrapper runs its plain version
-      on CPU tensors) or 'plain' (all cases through ``ops.bic_torch``).
+      rows through ``ops.bic_kernel``: scores through its score entry, which
+      reduces the counts on chip, counts through its fused entry; each
+      wrapper runs its plain version on CPU tensors) or 'plain' (all cases
+      through ``ops.bic_torch``).
     device: where the dataset lives and scoring runs.
     """
 
@@ -101,6 +103,11 @@ class BicScorer:
         )
 
     def _node_scores(self, adj: torch.Tensor) -> tuple:
+        if self.impl == "kernel":
+            return bic_kernel.node_scores_fused(
+                adj, self._codes_u, self._weights, self._cards, self.q_cap, self.r_max,
+                self.dataset.num_cases, self.metric, codes_cm=self._codes_cm,
+            )
         counts, q = self.counts(adj)
         node_scores = bic_torch.node_scores_from_counts(
             counts, q, self._cards, self.dataset.num_cases, self.metric

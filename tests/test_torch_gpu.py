@@ -392,6 +392,10 @@ def test_seg_wide_kernel_equals_plain_version(cuda, R, U, S):
     assert _launch_counts() == (before[0] + (not wide), before[1] + 1 + wide, *before[2:])
 
 
+def _score_launch_counts():
+    return (bic_kernel.node_scores_fused.launches, bic_kernel.node_scores_fused_wide.launches)
+
+
 @pytest.mark.parametrize(
     "B,n,U,r_max,q_cap,indegrees",
     [
@@ -504,11 +508,13 @@ def test_sachs_three_state_family_table_on_card_equals_cpu(cuda, sachs_three_sta
     assert (card_scorer.q_cap, card_scorer.r_max, ds.num_variables) == (4096, 3, 11)
     narrow = bic_kernel.route("fused", 4096 * 3,
                               bic_kernel.fused_warp_bytes(4096 * 3, 11)) == "narrow"
-    before = _launch_counts()
+    before, scores_before = _launch_counts(), _score_launch_counts()
     card = FamilyTableScorer(ds, max_parents=8, base_scorer=card_scorer)
-    # 2^11 masks in chunks of 1,024: two fused launches on the route route() picks
-    assert _launch_counts() == (before[0], before[1], before[2] + 2 * narrow,
-                                before[3] + 2 * (not narrow))
+    # 2^11 masks in chunks of 1,024: two launches of the score entry on the
+    # route route() picks, none of the count entries
+    assert _launch_counts() == before
+    assert _score_launch_counts() == (scores_before[0] + 2 * narrow,
+                                      scores_before[1] + 2 * (not narrow))
     cpu = FamilyTableScorer(ds, max_parents=8, device="cpu")
     got, want = card._table_t.cpu().numpy(), cpu._table_t.numpy()
     np.testing.assert_array_equal(np.isneginf(got), np.isneginf(want))
@@ -527,11 +533,13 @@ def test_sachs_three_state_exact_search_on_card_equals_cpu(cuda, sachs_three_sta
     cpu = BicScorer(ds, max_parents=8, device="cpu")
     narrow = bic_kernel.route("fused", 4096 * 3,
                               bic_kernel.fused_warp_bytes(4096 * 3, 11)) == "narrow"
-    before = _launch_counts()
+    before, scores_before = _launch_counts(), _score_launch_counts()
     got = exact_search(card, 11, max_parents=6)
-    # one chunk of 848 families per node, on the route route() picks
-    assert _launch_counts() == (before[0], before[1], before[2] + 11 * narrow,
-                                before[3] + 11 * (not narrow))
+    # one chunk of 848 families per node through the score entry, on the
+    # route route() picks
+    assert _launch_counts() == before
+    assert _score_launch_counts() == (scores_before[0] + 11 * narrow,
+                                      scores_before[1] + 11 * (not narrow))
     want = exact_search(cpu, 11, max_parents=6)
     assert got.num_families == want.num_families == 9328
     # float32 family scores summed in another order: 1e-5; float64 re-scores 1e-9
@@ -827,3 +835,107 @@ def test_family_cluster_kernel_raises_on_what_the_card_refuses(cuda):
     shifted = torch.zeros(fam._weights.shape[0] + 1, dtype=torch.int32, device=cuda)[1:]
     with pytest.raises(ValueError, match="16-byte"):
         bic_kernel.contingency_counts_family(*args[:4], shifted, *args[5:])
+
+
+# ---- the score entry: counts reduced to node scores on chip -----------------
+
+SCORE_METRICS = ("bic", "aic", "loglik", "bde")
+
+
+def _score_case(B, n, U, r_max, q_cap, indegrees, seed=0):
+    """The score entry's arguments on the CPU for :func:`_fused_inputs`."""
+    codes_u, w, cards, adj = _fused_inputs(B, n, U, r_max, indegrees, seed)
+    return (adj, codes_u, w, cards, q_cap, r_max, int(w.sum()))
+
+
+def _on(device, args):
+    return tuple(a.to(device) if torch.is_tensor(a) else a for a in args)
+
+
+def _scores_close(got, want):
+    """Node scores within the float32 tolerance: 1e-5 relative or 1e-3
+    absolute (sums of the same terms in another order)."""
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-3)
+
+
+@pytest.mark.parametrize("metric", SCORE_METRICS)
+@pytest.mark.parametrize(
+    "B,n,U,r_max,q_cap,indegrees",
+    [
+        (2, 37, 4973, 2, 256, DECODED_MIX),  # alarm widths: lane-private bins and atomics
+        (3, 12, 3000, 4, 64, tuple(range(9))),  # rows past q_cap
+        (2, 11, 698, 3, 4096, (0, 2, 5, 8)),  # three states, S = 12,288: one wide tile
+        (2, 7, 700, 7, 2341, (0, 2, 6)),  # S = 16,387: 2 tiles of 1,171 configurations
+        (2, 6, 900, 3, 5465, (0, 3, 5)),  # S = 16,395: tiles of 8,200 bins would split one
+        (2, 6, 1500, 16, 4096, (0, 3, 5)),  # S = 65,536: 4 tiles
+        (2, 5, 500, 300, 4, (0, 1, 2)),  # r_max > 255: int32 codes
+        (2, 6, 1, 2, 16, (0, 5, 1)),  # U = 1
+    ],
+    ids=["alarm-widths", "card4", "s12288", "s16387", "s16395-straddle", "s65536",
+         "int32-codes", "u1"],
+)
+def test_score_kernels_equal_plain_on_both_routes(cuda, B, n, U, r_max, q_cap, indegrees,
+                                                  metric):
+    """The entry on the route route() picks, its narrow kernel where a warp's
+    bins fit a block and its wide kernel, each within the float32 tolerance
+    of the plain version; every launch of one kernel bit-equal to the
+    next."""
+    args = (*_score_case(B, n, U, r_max, q_cap, indegrees), metric)
+    want, q_want = bic_kernel.node_scores_fused_plain(*args)
+    card = _on(cuda, args)
+    S = q_cap * r_max
+    wide = bic_kernel.route("fused", S, bic_kernel.fused_warp_bytes(S, n)) == "wide"
+    before = _score_launch_counts()
+    got, q = bic_kernel.node_scores_fused(*card)
+    again, _ = bic_kernel.node_scores_fused(*card)
+    torch.cuda.synchronize()
+    assert _score_launch_counts() == (before[0] + 2 * (not wide), before[1] + 2 * wide)
+    assert torch.equal(q.cpu(), q_want) and torch.equal(got, again)
+    _scores_close(got, want)
+
+    strides_t, q, codes_cm = bic_kernel._score_inputs(card[0], card[1], card[3], r_max, None)
+    kernel_args = (strides_t, q, codes_cm, card[2], card[3], q_cap, r_max, card[6], metric, 1.0)
+    by_wide = bic_kernel._launch_scores(*kernel_args, wide=True)
+    assert torch.equal(by_wide, bic_kernel._launch_scores(*kernel_args, wide=True))
+    assert torch.equal(by_wide, got) or not wide
+    _scores_close(by_wide, want)
+    if bic_kernel.fused_warp_bytes(S, n) <= bic_kernel.MAX_SHARED_BYTES:
+        narrow = bic_kernel._launch_scores(*kernel_args)
+        assert torch.equal(narrow, bic_kernel._launch_scores(*kernel_args))
+        _scores_close(narrow, want)
+        assert torch.equal(narrow, got) or wide
+
+
+def test_score_entry_through_the_scorer_on_card_equals_cpu(cuda):
+    """``BicScorer`` on the card scores through the score entry alone (no
+    count launch) at alarm and at barley width (S = 65,536), to the CPU
+    scorer's scores; its float64 exact scores still count through the
+    fused entry."""
+    for name, max_card in (("alarm", 2), ("barley", 16)):
+        _, ds = make_synthetic_problem(name, num_cases=800, max_card=max_card)
+        n = ds.num_variables
+        _, adj = sampler.sample_er_batch(np.random.default_rng(4), 16, n, 2 * n, n,
+                                         require_connected=False, max_in_degree=8)
+        card = BicScorer(ds, max_parents=8, device=cuda)
+        cpu = BicScorer(ds, max_parents=8, device="cpu", impl="plain")
+        before, scores_before = _launch_counts(), _score_launch_counts()
+        got = card.score(adj)
+        torch.cuda.synchronize()
+        wide = name == "barley"
+        assert _launch_counts() == before
+        assert _score_launch_counts() == (scores_before[0] + (not wide), scores_before[1] + wide)
+        torch.testing.assert_close(got.cpu(), cpu.score(adj), rtol=1e-5, atol=1e-3)
+        _scores_close(card.score_nodes(adj), cpu.score_nodes(adj))
+        np.testing.assert_allclose(card.score_exact(adj), cpu.score_exact(adj), rtol=1e-9)
+
+
+def test_score_wrapper_rejects_what_it_cannot_take(cuda):
+    args = _on(cuda, _score_case(2, 6, 64, 2, 16, (1, 2)))
+    with pytest.raises(ValueError, match="unknown metric"):
+        bic_kernel.node_scores_fused(*args, metric="bdeu")
+    with pytest.raises(ValueError, match="on"):
+        bic_kernel.node_scores_fused(args[0], args[1], args[2].cpu(), *args[3:])
+    strides_t, q, codes_cm = bic_kernel._score_inputs(args[0], args[1], args[3], 2, None)
+    kernel_args = (strides_t, q, codes_cm, args[2], args[3], 16, 2, args[6], "bic", 1.0)
+    with pytest.raises(RuntimeError, match="cudaError"):  # lane-private bins past a warp
+        bic_kernel._launch_scores(*kernel_args, small_span=64)
