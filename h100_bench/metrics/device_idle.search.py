@@ -1,0 +1,4 @@
+"""``device_idle.search``: the share of the traced window in which no operation ran on
+the device, in %, while the latent search ran (``metrics_common.idle_share``)."""
+
+from h100_bench.metrics_common import idle_share as read  # noqa: F401
