@@ -17,7 +17,9 @@ module of the same path there and is held against it by
   refine, GP ascent, BO, islands), hill climbing (dense and delta) and
   the exact DP.
 - ``surrogate``   — the GP surrogate and its predictor dataset.
-- ``utils``       — configs, profiling (``trace``), NaN guards, DAG drawing.
+- ``utils``       — configs, the tracer (``profiling``: spans and counters on
+  the profiler's clock, ``trace`` the operator's Chrome-trace exporter), NaN
+  guards, DAG drawing.
 - ``experiments`` — the registry, ``ExperimentRunner`` and its CLI
   (``python -m dags_vae_search_tpu_torch.experiments.runner``), the results
   page.

@@ -40,6 +40,7 @@ from dags_vae_search_tpu_torch.graphs.dag import (
     pace_unwrap,
 )
 from dags_vae_search_tpu_torch.models.pace_vae import PaceVAE
+from dags_vae_search_tpu_torch.utils import profiling
 
 
 @torch.no_grad()
@@ -101,60 +102,62 @@ def _sample_decode(model, z, generator, constrain_labels, temperature, max_in_de
         allowed_core = (reach > 0).transpose(-1, -2) | eye
         allowed = (allowed_core & q_real & k_real) | (~q_real & ~k_real)
 
-        type_logits, edge_probs = model.decode_step(z, labels, adj, allowed, idx)
+        with profiling.span("decode.model", device=True):
+            type_logits, edge_probs = model.decode_step(z, labels, adj, allowed, idx)
 
-        if constrain_labels:
-            last = idx == n - 1
-            disallow = virtual | (~is_output_label if last else is_output_label)
-            disallow = disallow[None, :]
-            if mask_used:
-                disallow = disallow | used
-            type_logits = type_logits.masked_fill(disallow, torch.finfo(type_logits.dtype).min)
+        with profiling.span("decode.draw"):
+            if constrain_labels:
+                last = idx == n - 1
+                disallow = virtual | (~is_output_label if last else is_output_label)
+                disallow = disallow[None, :]
+                if mask_used:
+                    disallow = disallow | used
+                type_logits = type_logits.masked_fill(disallow, torch.finfo(type_logits.dtype).min)
 
-        if hard:
-            sampled = torch.argmax(type_logits, dim=-1)
-        else:
-            # Gumbel-max draw, as jax.random.categorical.  u in [0, 1) keeps
-            # -log(u) > 0; finfo.min / T is -inf, which the argmax never
-            # picks while a finite logit exists.
-            u = torch.rand(type_logits.shape, generator=generator, device=dev)
-            gumbel = -torch.log(-torch.log(u))
-            sampled = torch.argmax(type_logits * inv_t + gumbel, dim=-1)
-        sampled = sampled.to(torch.int32)
-        is_output = sampled == LABEL_OUTPUT
-        new_label = torch.full_like(sampled, LABEL_OUTPUT) if idx == n - 1 else sampled
-        labels[:, idx] = torch.where(finished, labels[:, idx], new_label)
+            if hard:
+                sampled = torch.argmax(type_logits, dim=-1)
+            else:
+                # Gumbel-max draw, as jax.random.categorical.  u in [0, 1) keeps
+                # -log(u) > 0; finfo.min / T is -inf, which the argmax never
+                # picks while a finite logit exists.
+                u = torch.rand(type_logits.shape, generator=generator, device=dev)
+                gumbel = -torch.log(-torch.log(u))
+                sampled = torch.argmax(type_logits * inv_t + gumbel, dim=-1)
+            sampled = sampled.to(torch.int32)
+            is_output = sampled == LABEL_OUTPUT
+            new_label = torch.full_like(sampled, LABEL_OUTPUT) if idx == n - 1 else sampled
+            labels[:, idx] = torch.where(finished, labels[:, idx], new_label)
 
-        parent_ok = (slot >= 1) & (slot <= idx - 1)
-        if hard:
-            bern = edge_probs > 0.5
-        else:
-            p = edge_probs.clamp(1e-6, 1.0 - 1e-6)
-            sharpened = torch.sigmoid((torch.log(p) - torch.log1p(-p)) * inv_t)
-            bern = torch.rand(edge_probs.shape, generator=generator, device=dev) < sharpened
-        sampled_edges = bern & parent_ok[None, :]
+            parent_ok = (slot >= 1) & (slot <= idx - 1)
+            if hard:
+                bern = edge_probs > 0.5
+            else:
+                p = edge_probs.clamp(1e-6, 1.0 - 1e-6)
+                sharpened = torch.sigmoid((torch.log(p) - torch.log1p(-p)) * inv_t)
+                bern = torch.rand(edge_probs.shape, generator=generator, device=dev) < sharpened
+            sampled_edges = bern & parent_ok[None, :]
 
-        if max_in_degree is not None:
-            # Keep at most max_in_degree REAL parents (slots >= 2); the
-            # stable double argsort breaks probability ties by slot index.
-            real_sampled = sampled_edges & (slot >= 2)[None, :]
-            neg = torch.where(real_sampled, -edge_probs, torch.inf)
-            rank = torch.argsort(torch.argsort(neg, dim=-1, stable=True), dim=-1, stable=True)
-            kept = real_sampled & (rank < max_in_degree)
-            sampled_edges = kept | (sampled_edges & (slot < 2)[None, :])
+            if max_in_degree is not None:
+                # Keep at most max_in_degree REAL parents (slots >= 2); the
+                # stable double argsort breaks probability ties by slot index.
+                real_sampled = sampled_edges & (slot >= 2)[None, :]
+                neg = torch.where(real_sampled, -edge_probs, torch.inf)
+                rank = torch.argsort(torch.argsort(neg, dim=-1, stable=True), dim=-1, stable=True)
+                kept = real_sampled & (rank < max_in_degree)
+                sampled_edges = kept | (sampled_edges & (slot < 2)[None, :])
 
-        sinks = (adj.sum(dim=-1) == 0) & (slot < idx)[None, :]
-        new_col = torch.where(is_output[:, None], sinks, sampled_edges)
-        new_col = new_col & ~finished[:, None]
-        col_f = new_col.to(torch.float32)
-        adj[:, :, idx] = col_f
+            sinks = (adj.sum(dim=-1) == 0) & (slot < idx)[None, :]
+            new_col = torch.where(is_output[:, None], sinks, sampled_edges)
+            new_col = new_col & ~finished[:, None]
+            col_f = new_col.to(torch.float32)
+            adj[:, :, idx] = col_f
 
-        # ancestors(idx) = parents U ancestors(parents)
-        anc = torch.clamp(col_f + (reach @ col_f[..., None])[..., 0], 0.0, 1.0)
-        reach[:, :, idx] = anc
+            # ancestors(idx) = parents U ancestors(parents)
+            anc = torch.clamp(col_f + (reach @ col_f[..., None])[..., 0], 0.0, 1.0)
+            reach[:, :, idx] = anc
 
-        used = used | ((new_label[:, None] == labels_range) & ~finished[:, None])
-        finished = finished | is_output
+            used = used | ((new_label[:, None] == labels_range) & ~finished[:, None])
+            finished = finished | is_output
     return labels, adj, finished
 
 
@@ -168,9 +171,12 @@ def decode_to_labeled(
 ) -> Tuple[DagBatch, torch.Tensor]:
     """Decode latents to labeled DAGs and a validity mask (unwrapped labels
     all within the real cardinality; edges point forward by construction)."""
-    labels, adj, _ = sample_decode(
-        model, z, generator, constrain_labels, temperature, max_in_degree
-    )
-    unwrapped = pace_unwrap(labels, adj)
-    valid = is_valid_labeled(unwrapped.labels, unwrapped.adj, model.real_label_cardinality)
+    with profiling.span("decode"):
+        labels, adj, _ = sample_decode(
+            model, z, generator, constrain_labels, temperature, max_in_degree
+        )
+        with profiling.span("decode.unwrap"):
+            unwrapped = pace_unwrap(labels, adj)
+            valid = is_valid_labeled(unwrapped.labels, unwrapped.adj,
+                                     model.real_label_cardinality)
     return unwrapped, valid

@@ -15,6 +15,7 @@ import torch
 
 from dags_vae_search_tpu_torch.ops import bic_kernel, bic_torch
 from dags_vae_search_tpu_torch.scoring.datasets import DiscreteDataset
+from dags_vae_search_tpu_torch.utils import profiling
 
 
 def one_hot(labels: torch.Tensor, n: int, dtype=torch.float32) -> torch.Tensor:
@@ -124,10 +125,11 @@ class BicScorer:
         All float32 on the device: absolute error ~1e-3 on |BIC| ~ 1e4,
         far below what ranking candidates needs.
         """
-        adj = self._adj(adj)
-        node_scores, q = self._node_scores(adj)
-        feasible = bic_torch.feasible_mask(adj, q, self.q_cap, self.max_parents)
-        return torch.where(feasible, node_scores.sum(-1), -torch.inf)
+        with profiling.span("score"):
+            adj = self._adj(adj)
+            node_scores, q = self._node_scores(adj)
+            feasible = bic_torch.feasible_mask(adj, q, self.q_cap, self.max_parents)
+            return torch.where(feasible, node_scores.sum(-1), -torch.inf)
 
     def score_exact(self, adj, chunk: int = 1024) -> np.ndarray:
         """Exact device counts and a float64 host entropy: R bnlearn's

@@ -30,6 +30,7 @@ import torch
 from dags_vae_search_tpu_torch.ops import bic_kernel
 from dags_vae_search_tpu_torch.ops.bic_kernel import family_cells
 from dags_vae_search_tpu_torch.scoring.datasets import DiscreteDataset
+from dags_vae_search_tpu_torch.utils import profiling
 
 
 class FamilyBatchScorer:
@@ -86,8 +87,10 @@ class FamilyBatchScorer:
 
     def score(self, children, parents) -> torch.Tensor:
         """children int32[F], parents int32[F, P] (pad = -1) -> float32[F]."""
+        with profiling.span("family.upload"):
+            families = self._families(children, parents)
         return _score_families(
-            *self._families(children, parents),
+            *families,
             self._codes_cm,
             self._multiplicities,
             self._cards,
@@ -105,11 +108,15 @@ class FamilyBatchScorer:
         rows so that XLA compiles one shape; eager torch has no compile to
         save, so a short chunk scores its real families only (a family's
         score does not depend on the other rows)."""
-        children = np.asarray(children, np.int32)
-        parents = np.asarray(parents, np.int32)
-        out = [self.score(children[s:s + chunk], parents[s:s + chunk]).cpu().numpy()
-               for s in range(0, children.shape[0], chunk)]
-        return np.concatenate(out) if out else np.empty(0, np.float32)
+        with profiling.span("family"):
+            children = np.asarray(children, np.int32)
+            parents = np.asarray(parents, np.int32)
+            out = []
+            for s in range(0, children.shape[0], chunk):
+                scores = self.score(children[s:s + chunk], parents[s:s + chunk])
+                with profiling.span("family.read"):
+                    out.append(scores.cpu().numpy())
+            return np.concatenate(out) if out else np.empty(0, np.float32)
 
 
 def _score_families(
@@ -123,24 +130,26 @@ def _score_families(
     num_cases: int,
     metric: str,
 ) -> torch.Tensor:
-    counts = bic_kernel.contingency_counts_family(children, parents, codes_cm, cards, weights,
-                                                  q_cap, r_max)
-    counts = counts.reshape(-1, q_cap, r_max)  # [F, Q, r]
-    _, q = bic_kernel.family_config_strides(parents, cards)
+    with profiling.span("family.launch"):
+        counts = bic_kernel.contingency_counts_family(children, parents, codes_cm, cards,
+                                                      weights, q_cap, r_max)
+    with profiling.span("family.reduce"):
+        counts = counts.reshape(-1, q_cap, r_max)  # [F, Q, r]
+        _, q = bic_kernel.family_config_strides(parents, cards)
 
-    n_j = counts.sum(dim=-1, keepdim=True)
-    safe = counts > 0
-    ratio = torch.where(safe, counts, 1.0) / torch.where(n_j > 0, n_j, 1.0)
-    ll = (counts * torch.where(safe, torch.log(ratio), 0.0)).sum(dim=(-2, -1))
+        n_j = counts.sum(dim=-1, keepdim=True)
+        safe = counts > 0
+        ratio = torch.where(safe, counts, 1.0) / torch.where(n_j > 0, n_j, 1.0)
+        ll = (counts * torch.where(safe, torch.log(ratio), 0.0)).sum(dim=(-2, -1))
 
-    r_child = cards[children.long()].to(torch.float32)
-    df = (r_child - 1.0) * q
-    if metric == "bic":
-        scores = ll - df * (float(np.log(float(num_cases))) / 2.0)
-    elif metric == "aic":
-        scores = ll - df
-    elif metric == "loglik":
-        scores = ll
-    else:
-        raise ValueError(f"unknown metric {metric!r}")
-    return torch.where(q <= float(q_cap), scores, -torch.inf)
+        r_child = cards[children.long()].to(torch.float32)
+        df = (r_child - 1.0) * q
+        if metric == "bic":
+            scores = ll - df * (float(np.log(float(num_cases))) / 2.0)
+        elif metric == "aic":
+            scores = ll - df
+        elif metric == "loglik":
+            scores = ll
+        else:
+            raise ValueError(f"unknown metric {metric!r}")
+        return torch.where(q <= float(q_cap), scores, -torch.inf)

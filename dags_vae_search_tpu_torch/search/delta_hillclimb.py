@@ -24,6 +24,7 @@ import numpy as np
 
 from dags_vae_search_tpu_torch.scoring.family_batch import FamilyBatchScorer
 from dags_vae_search_tpu_torch.search.hillclimb import HillClimbResult
+from dags_vae_search_tpu_torch.utils import profiling
 
 NEG_INF = float("-inf")
 
@@ -95,7 +96,8 @@ class _DeltaState:
         self.chunk = chunk
         self.adj = adj.astype(bool)
         self.evals = 0
-        # wall-clock phase accounting, reported by profile()
+        # wall-clock phase sums, reported by profile(); each phase is also a
+        # span: delta.closure, family (the scorer's), delta.build
         self.t_score = 0.0
         self.t_closure = 0.0
         self.t_build = 0.0
@@ -111,12 +113,14 @@ class _DeltaState:
 
     def _timed_closure(self, adj: np.ndarray) -> np.ndarray:
         t0 = time.perf_counter()
-        out = _closure_bool(adj)
+        with profiling.span("delta.closure"):
+            out = _closure_bool(adj)
         self.t_closure += time.perf_counter() - t0
         return out
 
     def _score(self, children, parents) -> np.ndarray:
         self.evals += len(children)
+        profiling.count("delta.families", len(children))
         t0 = time.perf_counter()
         out = self.fam.score_chunked(children, parents, chunk=self.chunk)
         self.t_score += time.perf_counter() - t0
@@ -126,10 +130,11 @@ class _DeltaState:
         """Recompute the gain_add/gain_del columns of several children in
         one batched scoring pass."""
         t0 = time.perf_counter()
-        children, parents, slots = refresh_families(self.adj, ys, self.max_parents)
-        for y in ys:
-            self.gain_add[:, y] = NEG_INF
-            self.gain_del[:, y] = NEG_INF
+        with profiling.span("delta.build"):
+            children, parents, slots = refresh_families(self.adj, ys, self.max_parents)
+            for y in ys:
+                self.gain_add[:, y] = NEG_INF
+                self.gain_del[:, y] = NEG_INF
         self.t_build += time.perf_counter() - t0
         if not children:
             return
@@ -216,26 +221,27 @@ class _DeltaState:
         updated closure (deletions leave it overstated, which can only skip
         a legal add).  Returns the number of accepted moves.
         """
-        ga, gx = add.max(axis=0), add.argmax(axis=0)
-        gd, dx = dele.max(axis=0), dele.argmax(axis=0)
-        child_gain = np.maximum(ga, gd)
-        order = np.argsort(-child_gain)[:limit]
-        applied = []
-        deleted = False
-        for y in order:
-            g = child_gain[y]
-            if not np.isfinite(g) or g <= min_improvement:
-                break
-            y = int(y)
-            if ga[y] >= gd[y]:
-                x = int(gx[y])
-                if self.reach[y, x]:  # x now reachable from y -> cycle
-                    continue
-                self._apply_add(x, y)
-            else:
-                self._apply_del(int(dx[y]), y)
-                deleted = True
-            applied.append(y)
+        with profiling.span("delta.frontier"):
+            ga, gx = add.max(axis=0), add.argmax(axis=0)
+            gd, dx = dele.max(axis=0), dele.argmax(axis=0)
+            child_gain = np.maximum(ga, gd)
+            order = np.argsort(-child_gain)[:limit]
+            applied = []
+            deleted = False
+            for y in order:
+                g = child_gain[y]
+                if not np.isfinite(g) or g <= min_improvement:
+                    break
+                y = int(y)
+                if ga[y] >= gd[y]:
+                    x = int(gx[y])
+                    if self.reach[y, x]:  # x now reachable from y -> cycle
+                        continue
+                    self._apply_add(x, y)
+                else:
+                    self._apply_del(int(dx[y]), y)
+                    deleted = True
+                applied.append(y)
         if deleted:
             self.reach = self._timed_closure(self.adj)
         if applied:
@@ -263,50 +269,53 @@ def delta_hill_climb(
     reversals still go one at a time (they need the exact alternative-path
     check).
     """
-    deadline = None if time_budget_s is None else time.monotonic() + time_budget_s
-    n = num_variables
-    adj0 = np.zeros((n, n), bool) if init_adj is None else np.asarray(init_adj) > 0
-    state = _DeltaState(fam, adj0, fam.max_parents, chunk)
-    history = [float(state.fam_score.sum())]
+    with profiling.span("climb"):
+        deadline = None if time_budget_s is None else time.monotonic() + time_budget_s
+        n = num_variables
+        adj0 = np.zeros((n, n), bool) if init_adj is None else np.asarray(init_adj) > 0
+        state = _DeltaState(fam, adj0, fam.max_parents, chunk)
+        history = [float(state.fam_score.sum())]
 
-    def result(iters, converged):
-        return HillClimbResult(
-            best_score=float(state.fam_score.sum()),
-            best_adj=state.adj.astype(np.float32),
-            iterations=iters,
-            num_evals=state.evals,
-            history=history,
-            converged=converged,
-            profile=state.profile(),
-        )
-
-    moves = 0
-    while moves < max_iters:
-        if deadline is not None and time.monotonic() > deadline:
-            return result(moves, False)
-        add, dele, rev = state.feasible_deltas()
-        while True:
-            deltas = np.stack(
-                [add.max(initial=NEG_INF), dele.max(initial=NEG_INF), rev.max(initial=NEG_INF)]
+        def result(iters, converged):
+            return HillClimbResult(
+                best_score=float(state.fam_score.sum()),
+                best_adj=state.adj.astype(np.float32),
+                iterations=iters,
+                num_evals=state.evals,
+                history=history,
+                converged=converged,
+                profile=state.profile(),
             )
-            kind_i = int(np.argmax(deltas))
-            best_delta = float(deltas[kind_i])
-            if not np.isfinite(best_delta) or best_delta <= min_improvement:
-                return result(moves, True)
-            kind = ("add", "del", "rev")[kind_i]
-            mat = (add, dele, rev)[kind_i]
-            x, y = np.unravel_index(int(np.argmax(mat)), mat.shape)
-            if kind == "rev" and not state.reversal_acyclic(int(x), int(y)):
-                rev[x, y] = NEG_INF  # cyclic via an alternative path
-                continue
-            break
-        if kind == "rev" or accept_batch <= 1:
-            state.apply(kind, int(x), int(y))
-            moves += 1
-        else:
-            moves += state.apply_batch(
-                add, dele, min(accept_batch, max_iters - moves), min_improvement
-            )
-        history.append(float(state.fam_score.sum()))
 
-    return result(moves, False)
+        moves = 0
+        while moves < max_iters:
+            if deadline is not None and time.monotonic() > deadline:
+                return result(moves, False)
+            with profiling.span("delta.frontier"):
+                add, dele, rev = state.feasible_deltas()
+                while True:
+                    deltas = np.stack([add.max(initial=NEG_INF), dele.max(initial=NEG_INF),
+                                       rev.max(initial=NEG_INF)])
+                    kind_i = int(np.argmax(deltas))
+                    best_delta = float(deltas[kind_i])
+                    if not np.isfinite(best_delta) or best_delta <= min_improvement:
+                        return result(moves, True)
+                    kind = ("add", "del", "rev")[kind_i]
+                    mat = (add, dele, rev)[kind_i]
+                    x, y = np.unravel_index(int(np.argmax(mat)), mat.shape)
+                    if kind == "rev" and not state.reversal_acyclic(int(x), int(y)):
+                        rev[x, y] = NEG_INF  # cyclic via an alternative path
+                        continue
+                    break
+            if kind == "rev" or accept_batch <= 1:
+                state.apply(kind, int(x), int(y))
+                accepted = 1
+            else:
+                accepted = state.apply_batch(
+                    add, dele, min(accept_batch, max_iters - moves), min_improvement
+                )
+            moves += accepted
+            profiling.count("delta.moves", accepted)
+            history.append(float(state.fam_score.sum()))
+
+        return result(moves, False)

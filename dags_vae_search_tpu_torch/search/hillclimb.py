@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from dags_vae_search_tpu_torch.graphs.dag import transitive_closure
+from dags_vae_search_tpu_torch.utils import profiling
 
 
 class HillClimbResult(NamedTuple):
@@ -148,19 +149,20 @@ def climb_with_restarts(
     history = [best.best_score]
     ties = 0
     for r in range(restarts):
-        if r % 2 == 0:
-            frac = float(rng.choice([0.15, 0.3, 0.5]))
-            init = perturb_dag(
-                rng, best.best_adj, delete_frac=frac, add_frac=frac, max_parents=max_parents
-            )
-        else:
-            m = int(rng.integers(n - 1, max(2 * n, n), endpoint=True))
-            m = min(m, sampler.max_edges_capped(n, max_parents))
-            _, adj0 = sampler.sample_er_batch(
-                rng, 1, n, m, n, require_connected=False, max_in_degree=max_parents
-            )
-            p = rng.permutation(n)
-            init = adj0[0][np.ix_(p, p)]
+        with profiling.span("climb.restart"):
+            if r % 2 == 0:
+                frac = float(rng.choice([0.15, 0.3, 0.5]))
+                init = perturb_dag(
+                    rng, best.best_adj, delete_frac=frac, add_frac=frac, max_parents=max_parents
+                )
+            else:
+                m = int(rng.integers(n - 1, max(2 * n, n), endpoint=True))
+                m = min(m, sampler.max_edges_capped(n, max_parents))
+                _, adj0 = sampler.sample_er_batch(
+                    rng, 1, n, m, n, require_connected=False, max_in_degree=max_parents
+                )
+                p = rng.permutation(n)
+                init = adj0[0][np.ix_(p, p)]
         res = climb(init)
         evals += res.num_evals
         iters += res.iterations
@@ -188,52 +190,64 @@ def hill_climb(
 
     Moves are scored in fixed ``score_chunk`` windows of the move list; the
     last window is shifted back to end at the list's end (so it overlaps the
-    one before), and the first index wins a tie inside a window."""
-    n = num_variables
-    dev = scorer.device
-    if init_adj is None:
-        adj = torch.zeros((n, n), device=dev)
-    else:
-        adj = torch.as_tensor(np.asarray(init_adj), dtype=torch.float32, device=dev)
-    total_moves = 3 * n * n
-    chunk = min(score_chunk, total_moves)
+    one before), and the first index wins a tie inside a window.  Counters
+    ``climb.rows_scored`` (rows sent to the scorer by the steps) and
+    ``climb.moves_feasible`` (feasible moves among the rows a step had not
+    scored yet) give the share of the scorer's rows that are distinct
+    feasible moves."""
+    with profiling.span("climb"):
+        n = num_variables
+        dev = scorer.device
+        if init_adj is None:
+            adj = torch.zeros((n, n), device=dev)
+        else:
+            adj = torch.as_tensor(np.asarray(init_adj), dtype=torch.float32, device=dev)
+        total_moves = 3 * n * n
+        chunk = min(score_chunk, total_moves)
 
-    def propose(adj):
-        moves = _move_candidates(adj)
-        best_score, best_adj = -np.inf, None
-        for start in range(0, total_moves, chunk):
-            start = min(start, total_moves - chunk)
-            cands = moves[start : start + chunk]
-            ok = _feasible(adj, cands, offset=start)
-            scores = torch.where(ok, scorer.score(cands), -torch.inf)
-            k = torch.argmax(scores).reshape(1)
-            score = float(scores.index_select(0, k))  # the step's host read
-            if score > best_score:
-                best_score, best_adj = score, cands.index_select(0, k)[0]
-        return best_score, best_adj
+        def propose(adj):
+            with profiling.span("climb.candidates"):
+                moves = _move_candidates(adj)
+            best_score, best_adj = -np.inf, None
+            for first in range(0, total_moves, chunk):
+                start = min(first, total_moves - chunk)
+                cands = moves[start : start + chunk]
+                with profiling.span("climb.feasible"):
+                    ok = _feasible(adj, cands, offset=start)
+                if profiling.enabled():
+                    profiling.count("climb.rows_scored", chunk)
+                    # the rows from ``first`` on: the shifted last window's new ones
+                    profiling.count("climb.moves_feasible", ok[first - start:])
+                scores = torch.where(ok, scorer.score(cands), -torch.inf)
+                k = torch.argmax(scores).reshape(1)
+                with profiling.span("climb.read"):
+                    score = float(scores.index_select(0, k))  # the step's host read
+                if score > best_score:
+                    best_score, best_adj = score, cands.index_select(0, k)[0]
+            return best_score, best_adj
 
-    current = float(scorer.score(adj[None])[0])
-    history = [current]
-    evals = 1
-    for it in range(max_iters):
-        best_score, best_adj = propose(adj)
-        evals += total_moves
-        if best_score <= current + min_improvement:
-            return HillClimbResult(
-                best_score=current,
-                best_adj=adj.cpu().numpy(),
-                iterations=it,
-                num_evals=evals,
-                history=history,
-            )
-        current = best_score
-        adj = best_adj
-        history.append(current)
-    return HillClimbResult(
-        best_score=current,
-        best_adj=adj.cpu().numpy(),
-        iterations=max_iters,
-        num_evals=evals,
-        history=history,
-        converged=False,
-    )
+        current = float(scorer.score(adj[None])[0])
+        history = [current]
+        evals = 1
+        for it in range(max_iters):
+            best_score, best_adj = propose(adj)
+            evals += total_moves
+            if best_score <= current + min_improvement:
+                return HillClimbResult(
+                    best_score=current,
+                    best_adj=adj.cpu().numpy(),
+                    iterations=it,
+                    num_evals=evals,
+                    history=history,
+                )
+            current = best_score
+            adj = best_adj
+            history.append(current)
+        return HillClimbResult(
+            best_score=current,
+            best_adj=adj.cpu().numpy(),
+            iterations=max_iters,
+            num_evals=evals,
+            history=history,
+            converged=False,
+        )

@@ -18,6 +18,7 @@ import torch.distributed as dist
 from dags_vae_search_tpu_torch.models.pace_vae import PaceVAE
 from dags_vae_search_tpu_torch.parallel import mesh as mesh_lib
 from dags_vae_search_tpu_torch.search.latent import SearchResult, decode_and_score
+from dags_vae_search_tpu_torch.utils import profiling
 
 
 class IslandState(NamedTuple):
@@ -174,52 +175,58 @@ def island_cem_search(
     t_hi, t_lo = temperature_range
     history = []
     for it in range(iters):
-        temp = t_hi + (t_lo - t_hi) * (it / max(iters - 1, 1))
-        noise = torch.randn((num_islands, population, dim), generator=gen, device=device)
-        z = state.mean[:, None, :] + state.sigma[:, None, :] * noise
-        z = z if mesh is None else z[mine]
-        k = z.shape[0]
-        scores, labels, adj = decode_and_score(
-            model, scorer, to_full(z.reshape(k * population, dim)), decode_gen(it),
-            temperature=temp,
-        )
-        n = labels.shape[-1]
-        state = merged(island_update(
-            local(state), z, scores.reshape(k, population), labels.reshape(k, population, n),
-            adj.reshape(k, population, n, n), n_elite, smoothing, sigma_floor,
-        ))
-        if (it + 1) % migrate_every == 0:
-            state = migrate(state, init_sigma)
-        history.append(float(state.best_score.max()))
+        with profiling.span("search.iteration"):
+            temp = t_hi + (t_lo - t_hi) * (it / max(iters - 1, 1))
+            noise = torch.randn((num_islands, population, dim), generator=gen, device=device)
+            z = state.mean[:, None, :] + state.sigma[:, None, :] * noise
+            z = z if mesh is None else z[mine]
+            k = z.shape[0]
+            scores, labels, adj = decode_and_score(
+                model, scorer, to_full(z.reshape(k * population, dim)), decode_gen(it),
+                temperature=temp,
+            )
+            n = labels.shape[-1]
+            with profiling.span("search.update"):
+                state = merged(island_update(
+                    local(state), z, scores.reshape(k, population),
+                    labels.reshape(k, population, n), adj.reshape(k, population, n, n),
+                    n_elite, smoothing, sigma_floor,
+                ))
+                if (it + 1) % migrate_every == 0:
+                    state = migrate(state, init_sigma)
+            with profiling.span("search.read"):
+                history.append(float(state.best_score.max()))
 
     evals = iters * num_islands * population
     if exploit_repeats > 0:
-        # sharp re-decodes of every island's incumbent latent
-        mine_state = local(state)
-        k = mine_state.best_z.shape[0]
-        rep_z = mine_state.best_z.repeat_interleave(exploit_repeats, dim=0)
-        scores, labels, adj = decode_and_score(
-            model, scorer, to_full(rep_z), decode_gen(iters), temperature=min(t_lo, 0.1)
-        )
-        evals += num_islands * exploit_repeats
-        n = labels.shape[-1]
-        scores = scores.reshape(k, exploit_repeats)
-        r_best = torch.argmax(scores, dim=1)
-        r_score = _pick(scores, r_best)
-        improved = r_score > mine_state.best_score
-        state = merged(mine_state._replace(
-            best_score=torch.where(improved, r_score, mine_state.best_score),
-            best_labels=torch.where(
-                improved[:, None], _pick(labels.reshape(k, exploit_repeats, n), r_best),
-                mine_state.best_labels,
-            ),
-            best_adj=torch.where(
-                improved[:, None, None],
-                _pick(adj.reshape(k, exploit_repeats, n, n), r_best),
-                mine_state.best_adj,
-            ),
-        ))
-        history.append(float(state.best_score.max()))
+        with profiling.span("search.exploit"):
+            # sharp re-decodes of every island's incumbent latent
+            mine_state = local(state)
+            k = mine_state.best_z.shape[0]
+            rep_z = mine_state.best_z.repeat_interleave(exploit_repeats, dim=0)
+            scores, labels, adj = decode_and_score(
+                model, scorer, to_full(rep_z), decode_gen(iters), temperature=min(t_lo, 0.1)
+            )
+            evals += num_islands * exploit_repeats
+            n = labels.shape[-1]
+            scores = scores.reshape(k, exploit_repeats)
+            r_best = torch.argmax(scores, dim=1)
+            r_score = _pick(scores, r_best)
+            improved = r_score > mine_state.best_score
+            state = merged(mine_state._replace(
+                best_score=torch.where(improved, r_score, mine_state.best_score),
+                best_labels=torch.where(
+                    improved[:, None], _pick(labels.reshape(k, exploit_repeats, n), r_best),
+                    mine_state.best_labels,
+                ),
+                best_adj=torch.where(
+                    improved[:, None, None],
+                    _pick(adj.reshape(k, exploit_repeats, n, n), r_best),
+                    mine_state.best_adj,
+                ),
+            ))
+            with profiling.span("search.read"):
+                history.append(float(state.best_score.max()))
 
     g_idx = int(torch.argmax(state.best_score))
     return SearchResult(

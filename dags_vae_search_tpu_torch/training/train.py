@@ -50,8 +50,8 @@ import torch
 from dags_vae_search_tpu_torch.models.pace_vae import PaceVAE
 from dags_vae_search_tpu_torch.parallel import mesh as mesh_lib
 from dags_vae_search_tpu_torch.training import data as data_lib
+from dags_vae_search_tpu_torch.utils import profiling
 from dags_vae_search_tpu_torch.utils.debug import nan_guard
-from dags_vae_search_tpu_torch.utils.profiling import StepTimer, annotate
 
 
 @dataclass
@@ -322,7 +322,7 @@ class Trainer:
             batches = 0
             dispatches = 0
             epoch_t0 = time.time()
-            timer = StepTimer(window=10_000)
+            timer = profiling.StepTimer(window=10_000)
             if device_loop:
                 steps = len(corpus) // b
                 if steps == 0:
@@ -333,7 +333,7 @@ class Trainer:
                 for start in range(0, steps, k):
                     kc = min(k, steps - start)
                     t_chunk = time.time()
-                    with timer.step(items=kc), annotate("train_chunk"):
+                    with timer.step(items=kc), profiling.span("train_chunk"):
                         block = torch.as_tensor(perm[start:start + kc], device=dev)
                         state, stacked = self.chunk_step(
                             state, corpus_labels, corpus_adj, block, generator
@@ -357,7 +357,7 @@ class Trainer:
                 for labels, adj in data_lib.epoch_batches(corpus, b, rng_np):
                     # no per-step read back: the timer measures what the host
                     # waits for per step, the epoch clock the true step time
-                    with timer.step(items=1), annotate("train_step"):
+                    with timer.step(items=1), profiling.span("train_step"):
                         if self.mesh is not None:
                             labels, adj = mesh_lib.shard_batch(self.mesh, labels, adj)
                         else:

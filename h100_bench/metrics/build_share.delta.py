@@ -1,0 +1,9 @@
+"""``build_share.delta``: the share of the traced window, in %, that the host
+spent in the self time of the delta climb's ``delta.build`` spans
+(``search/delta_hillclimb.py``)."""
+
+from h100_bench.metrics_program import self_share
+
+
+def read(ctx):
+    return self_share(ctx, {"delta.build"})

@@ -333,7 +333,9 @@ def test_step_timer_and_counters():
     counters = Counters()
     counters.add("graphs", 128)
     counters.add("graphs", 128)
-    assert counters.get("graphs") == 256 and "graphs=256" in counters.summary()
+    counters.add("valid", torch.tensor([True, False, True]))  # summed, kept a tensor
+    assert torch.is_tensor(counters._sums["valid"])
+    assert counters.values() == {"graphs": 256.0, "valid": 2.0}
 
 
 def test_chunk_step_makes_no_host_copy(monkeypatch):
