@@ -1,8 +1,11 @@
 """Autoregressive sampling decode (torch).
 
 Counterpart of ``dags_vae_search_tpu/models/decode.py``; its ``lax.scan``
-over node slots is a Python loop here.  Semantics, reference quirks
-included:
+over node slots is a Python loop here, and where each JAX step runs every
+position through the decoder, a slot here runs only the position built last
+(``PaceVAE.decode_step_cached`` over a per-call cache): a built position
+attends only its ancestors and itself, so its keys, values and output never
+change.  Semantics, reference quirks included:
 
 - slots 0/1 are pre-seeded with start/input and the start->input edge;
 - each step samples a node type from the ``add_node`` logits and in-edges
@@ -90,20 +93,17 @@ def _sample_decode(model, z, generator, constrain_labels, temperature, max_in_de
 
     slot = torch.arange(n, device=dev)
     labels_range = torch.arange(card, device=dev)
-    eye = torch.eye(n, dtype=torch.bool, device=dev)
     virtual = (labels_range == LABEL_START) | (labels_range == LABEL_INPUT)
     is_output_label = labels_range == LABEL_OUTPUT
 
+    with profiling.span("decode.memory", device=True):
+        cache = model.decode_memory(z)
+    profiling.count("decode.rows", batch)
     for idx in range(2, n):
-        # Query q attends key k iff path k -> q or q == k among built slots;
-        # the padding block attends itself.
-        built = slot < idx
-        q_real, k_real = built[:, None], built[None, :]
-        allowed_core = (reach > 0).transpose(-1, -2) | eye
-        allowed = (allowed_core & q_real & k_real) | (~q_real & ~k_real)
-
+        # the positions built since the last slot go through the decoder
+        profiling.count("decode.positions", batch * (idx - cache.length))
         with profiling.span("decode.model", device=True):
-            type_logits, edge_probs = model.decode_step(z, labels, adj, allowed, idx)
+            type_logits, edge_probs = model.decode_step_cached(cache, labels, adj, reach, idx)
 
         with profiling.span("decode.draw"):
             if constrain_labels:

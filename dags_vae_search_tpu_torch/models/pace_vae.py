@@ -19,6 +19,7 @@ default generator when None).
 from __future__ import annotations
 
 import math
+from dataclasses import dataclass
 from typing import Optional, Tuple
 
 import torch
@@ -247,6 +248,92 @@ class PaceVAE(nn.Module):
             edge_logits = edge_logits + torch.roll(row, 1, dims=-1)
         return type_logits, torch.sigmoid(edge_logits)
 
+    @torch.no_grad()
+    def decode_memory(self, z: torch.Tensor) -> "DecodeCache":
+        """What a sampling decode of ``z`` computes once (:class:`DecodeCache`):
+        each decoder layer's memory keys and values and its buffers, the edge
+        readout, and the weights a position's step reads, rounded."""
+        b, n, d = z.shape[0], self.max_n, self.d_model
+        md = self.matmul_dtype
+        memory = self.fc3(z).reshape(b, n, d)
+        w_edge = round_operand(self.add_edge_hidden.weight, md)
+        readout = None
+        if self.edge_readout:
+            if self.edge_readout_rank > 0:
+                r = self.edge_readout_rank
+                u = self.edge_readout_u(z).reshape(b, n - 1, r)
+                # v by parent slot: slot p reads row p - 1, slot 0 a zero row
+                v = F.pad(self.edge_readout_v(z).reshape(b, n - 1, r), (0, 0, 1, 0))
+                readout = (u, v)
+            else:
+                # row i = child slot i + 1; column p = parent slot p (p - 1
+                # of the loss pair), column 0 zero
+                readout = F.pad(self.edge_readout_fc(z).reshape(b, n - 1, n - 1), (1, 0))
+        # the label embedding of a one-hot row is a row of this table
+        table = F.relu(round_operand(self.label_embed.weight, md).t() + self.label_embed.bias)
+        return DecodeCache(
+            layers=[getattr(self.decoder, f"layer{i}").begin_decode(memory)
+                    for i in range(self.decoder.num_layers)],
+            label_table=table, pos_w1=round_operand(self.pos_w1, md),
+            pos_w2=round_operand(self.pos_w2, md),
+            edge_w_new=w_edge[:, :d], edge_w_parent_t=w_edge[:, d:].t(),
+            parent_half=torch.zeros((n, b, d), device=z.device), readout=readout)
+
+    @torch.no_grad()
+    def decode_step_cached(
+        self,
+        cache: "DecodeCache",
+        labels: torch.Tensor,  # int32[B, N] current PACE labels (pad=OUTPUT)
+        adj: torch.Tensor,  # float32[B, N, N] current PACE adjacency
+        reach: torch.Tensor,  # float32[B, N, N] paths among built slots
+        idx: int,  # slot being generated (2..N-1)
+    ):
+        """:meth:`decode_step` in eval mode, from ``cache``: only the positions
+        built since the cache's last step (0 and 1 at slot 2, then ``idx -
+        1``) go through the decoder, one at a time, since a built position
+        attends only its ancestors and itself and so never changes.  Returns
+        what :meth:`decode_step` returns; the edge probabilities at parent
+        slots ``idx ..`` are placeholders (0.5)."""
+        n, md = labels.shape[-1], self.matmul_dtype
+        if not cache.length < idx <= n - 1:
+            raise ValueError(f"slot {idx} after a cache of {cache.length} positions")
+        for j in range(cache.length, idx):
+            h = self._decode_position(cache, labels, adj, reach, j)
+        cache.length = idx
+
+        type_logits = self._add_node(h)
+        # parent slot p pairs h with position p - 1: [h ‖ h_p] W^T + b
+        new_half = F.linear(round_operand(h, md), cache.edge_w_new, self.add_edge_hidden.bias)
+        hidden = F.relu(new_half + cache.parent_half[:idx])  # [idx, B, d]
+        edge_logits = self.add_edge_out(hidden)[..., 0].t()  # [B, idx], by parent slot
+        if self.edge_readout:
+            if self.edge_readout_rank > 0:
+                u, v = cache.readout
+                row = (v[:, :idx] @ u[:, idx - 1, :, None])[..., 0] / (self.edge_readout_rank**0.5)
+            else:
+                row = cache.readout[:, idx - 1, :idx]
+            edge_logits = edge_logits + row
+        return type_logits, F.pad(torch.sigmoid(edge_logits), (0, n - idx), value=0.5)
+
+    def _decode_position(self, cache, labels, adj, reach, j: int) -> torch.Tensor:
+        """Position ``j`` through the decoder (its keys and values and its half
+        of the first edge layer kept in ``cache``): its output [B, d]."""
+        md, n = self.matmul_dtype, self.max_n
+        # vertex features: the label's embedding, and the positional row
+        # [e_j ‖ A^T_j] through the positional MLP
+        pos = F.relu(torch.addmm(cache.pos_w1[j], adj[:, :, j], cache.pos_w1[n:]))
+        tgt = torch.cat([cache.label_table[labels[:, j]],
+                         round_operand(pos, md) @ cache.pos_w2], dim=-1)
+        # j may attend k <= j iff path k -> j or k == j
+        heads = self.decoder.layer0.self_attn.num_heads
+        bias = (reach[:, :j + 1, j] - 1.0) * 1e30
+        bias[:, j] = 0.0
+        bias = bias[:, None, None, :].expand(-1, heads, 1, -1).reshape(-1, 1, j + 1)
+        for i, state in enumerate(cache.layers):
+            tgt = getattr(self.decoder, f"layer{i}").step(tgt, state, j, bias)
+        torch.mm(round_operand(tgt, md), cache.edge_w_parent_t, out=cache.parent_half[j + 1])
+        return tgt
+
     # ----------------------------------------------------------------- loss
 
     def loss_wrapped(
@@ -311,6 +398,29 @@ class PaceVAE(nn.Module):
 
     def forward(self, labels: torch.Tensor, adj: torch.Tensor):
         return self.loss(labels, adj)
+
+
+@dataclass
+class DecodeCache:
+    """One sampling decode's state for :meth:`PaceVAE.decode_step_cached`,
+    made by :meth:`PaceVAE.decode_memory`: ``layers`` each decoder layer's
+    (``DecoderLayer.begin_decode``: its keys and values of the positions
+    decoded so far, the memory's); ``parent_half`` [N, B, d] each decoded
+    position's half of ``add_edge_hidden`` (no bias) by the parent slot it
+    becomes (position j at slot j + 1); ``readout`` the edge readout: None,
+    the bias rows [B, N - 1, N] by parent slot, or the rank factors (u [B, N
+    - 1, r], v by parent slot [B, N, r]); the rest weights rounded to
+    ``matmul_dtype`` and constants.  ``length`` positions are decoded."""
+
+    layers: list
+    label_table: torch.Tensor
+    pos_w1: torch.Tensor
+    pos_w2: torch.Tensor
+    edge_w_new: torch.Tensor
+    edge_w_parent_t: torch.Tensor
+    parent_half: torch.Tensor
+    readout: object
+    length: int = 0
 
 
 def make_model(seed: int = 0, device="cuda", **kwargs) -> PaceVAE:

@@ -10,6 +10,10 @@ batch-first ([B, N, D]).  Submodules carry the flax names, so
 The decoder's cross-attention takes the same allow mask as its
 self-attention (the reference decoder passes the target mask to both).
 
+A sampling decode runs the decoder one position at a time
+(``DecoderLayer.begin_decode`` / ``step``, ``MultiHeadAttention.attend``):
+each position's keys and values are kept, as no later position changes them.
+
 Dropout is active in ``train()`` mode and off in ``eval()`` mode.  It draws
 its masks from the ``generator`` passed down through ``forward`` (the
 device's default generator when None), so a seeded training run repeats.
@@ -117,6 +121,32 @@ class MultiHeadAttention(nn.Module):
         out = round_operand(weights, md) @ round_operand(v, md)
         return self.out_proj(out.transpose(1, 2).reshape(b, nq, d_model))
 
+    def keys_values(self, x: torch.Tensor):
+        """The keys and values of ``x`` [B, N, D] with the heads folded into the
+        batch, [B·H, N, d_head] each, rounded as :meth:`forward` rounds them
+        for its products: what :meth:`attend` reads."""
+        b, n, d_model = x.shape
+        md, h = self.matmul_dtype, self.num_heads
+
+        def heads(y):
+            y = y.reshape(b, n, h, d_model // h).transpose(1, 2)
+            return round_operand(y, md).reshape(b * h, n, d_model // h)
+
+        return heads(self.k_proj(x)), heads(self.v_proj(x))
+
+    def attend(self, query: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               bias: torch.Tensor) -> torch.Tensor:
+        """:meth:`forward` without dropout for one query a row, ``query`` [B,
+        D], over keys and values [B·H, Nk, d_head] as :meth:`keys_values`
+        makes them; ``bias`` [B·H, 1, Nk] is 0 where the query may attend and
+        -1e30 where not (the blocked logit of :meth:`forward`)."""
+        b, d_model = query.shape
+        md = self.matmul_dtype
+        q = round_operand(self.q_proj(query), md).view(b * self.num_heads, 1, -1)
+        logits = torch.baddbmm(bias, q, k.transpose(1, 2), alpha=1.0 / k.shape[-1] ** 0.5)
+        out = round_operand(torch.softmax(logits, dim=-1), md) @ v
+        return self.out_proj(out.view(b, d_model))
+
 
 class EncoderLayer(nn.Module):
     """Post-LN encoder block: self-attention, FFN."""
@@ -164,6 +194,35 @@ class DecoderLayer(nn.Module):
         tgt = self.norm2(tgt + drop(self.cross_attn(tgt, memory, memory, allowed, generator)))
         ff = self.linear2(drop(F.relu(self.linear1(tgt))))
         return self.norm3(tgt + drop(ff))
+
+    def begin_decode(self, memory: torch.Tensor) -> tuple:
+        """What a decode that runs one position at a time keeps for this layer
+        (:meth:`step`): an empty buffer for the self-attention keys and values
+        [B, H, N, 2, d_head], the memory's cross-attention keys and values,
+        and the key and value projections' weights stacked, rounded to
+        ``matmul_dtype``, with their biases."""
+        b, n, d_model = memory.shape
+        sa = self.self_attn
+        kv = torch.empty((b, sa.num_heads, n, 2, d_model // sa.num_heads), device=memory.device)
+        w = round_operand(torch.cat([sa.k_proj.weight, sa.v_proj.weight]), sa.matmul_dtype)
+        return (kv, self.cross_attn.keys_values(memory), w,
+                torch.cat([sa.k_proj.bias, sa.v_proj.bias]))
+
+    def step(self, tgt: torch.Tensor, state: tuple, j: int, bias: torch.Tensor):
+        """:meth:`forward` without dropout for position ``j`` alone, ``tgt`` [B,
+        D] its input, ``state`` from :meth:`begin_decode` holding positions
+        ``0 .. j - 1``: writes its keys and values there, and it attends
+        positions ``0 .. j`` as ``bias`` [B·H, 1, j + 1] allows
+        (:meth:`MultiHeadAttention.attend`)."""
+        kv, (ck, cv), w_kv, b_kv = state
+        b, h, sa = tgt.shape[0], kv.shape[1], self.self_attn
+        new = F.linear(round_operand(tgt, sa.matmul_dtype), w_kv, b_kv)
+        kv[:, :, j] = round_operand(new, sa.matmul_dtype).view(b, 2, h, -1).transpose(1, 2)
+        k = kv[:, :, :j + 1, 0].reshape(b * h, j + 1, -1)
+        v = kv[:, :, :j + 1, 1].reshape(b * h, j + 1, -1)
+        tgt = self.norm1(tgt + sa.attend(tgt, k, v, bias))
+        tgt = self.norm2(tgt + self.cross_attn.attend(tgt, ck[:, :j + 1], cv[:, :j + 1], bias))
+        return self.norm3(tgt + self.linear2(F.relu(self.linear1(tgt))))
 
 
 class Encoder(nn.Module):

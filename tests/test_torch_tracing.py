@@ -1,6 +1,6 @@
 """The port's tracer (``utils/profiling.py``): spans and counters on the
 profiler's clock, off (one flag check, nothing recorded) outside a profiler
-session, and the counters the structure climbs keep."""
+session, and the counters the structure climbs and the decode keep."""
 
 import ast
 import itertools
@@ -11,6 +11,8 @@ import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from dags_vae_search_tpu_torch.models.decode import decode_to_labeled
+from dags_vae_search_tpu_torch.models.pace_vae import make_model
 from dags_vae_search_tpu_torch.scoring.bic import BicScorer
 from dags_vae_search_tpu_torch.scoring.datasets import DiscreteDataset
 from dags_vae_search_tpu_torch.scoring.family_batch import FamilyBatchScorer
@@ -194,6 +196,27 @@ def test_delta_climb_counts_families_and_moves():
     assert {"climb", "delta.frontier", "delta.closure", "delta.build", "family",
             "family.upload", "family.launch", "family.reduce", "family.read"} <= names
     assert set(res.profile) == {"score_dispatch_s", "closure_s", "candidate_build_s"}
+
+
+@pytest.mark.parametrize("readout", [{}, {"edge_readout": True, "edge_readout_rank": 2}],
+                         ids=["plain", "rank_readout"])
+def test_decode_builds_its_cache_once_a_call_and_runs_each_position_once(readout):
+    model = make_model(0, "cpu", num_real_vertices=5, real_label_cardinality=5, embed_size=8,
+                       num_heads=2, num_layers=2, latent_size=8, fc_hidden=8, **readout)
+    z = torch.randn(6, 8, generator=torch.Generator().manual_seed(0))
+    with _session():
+        decode_to_labeled(model, z, torch.Generator().manual_seed(1))
+        decode_to_labeled(model, z[:4], torch.Generator().manual_seed(2), temperature=1e-4)
+    snap = profiling.snapshot()
+    spans, n = snap["spans"], model.max_n
+    names = [s["name"] for s in spans]
+    assert names.count("decode") == names.count("decode.memory") == 2
+    assert names.count("decode.model") == 2 * (n - 2)  # a slot each, 2 .. N - 1
+    decode = [i for i, s in enumerate(spans) if s["name"] == "decode"]
+    assert [s["parent"] for s in spans if s["name"] == "decode.memory"] == decode
+    counts = snap["counts"]
+    assert counts["decode.rows"] == 10
+    assert counts["decode.positions"] / counts["decode.rows"] == n - 1
 
 
 def _span_names() -> list:
