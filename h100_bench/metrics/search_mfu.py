@@ -8,9 +8,9 @@ computed for earlier slots: each new position through every layer once
 input features, its type head and its edge head (the new position's half of
 the first edge layer once, then a sum, a ReLU and the output dot per
 candidate parent), plus, once per candidate, the latent's memory, its keys
-and values in every layer, and the edge readout.  The program recomputes
-every earlier position at every slot, so this reads low today; a decoder
-that caches raises it.
+and values in every layer, and the edge readout.  The program's sampling
+decode keeps these in a per-call key/value cache and runs only each slot's
+new position, so the count follows what it runs.
 """
 
 from h100_bench import peaks
