@@ -2,6 +2,7 @@
 (every width shrunk, the same code paths), and a run of it on the CPU that
 skips the harness's look for a chip."""
 
+import ast
 import copy
 import json
 import sys
@@ -30,6 +31,38 @@ def bench_with_spares() -> dict:
             bench["end_to_end"] += entries["end_to_end"]
             bench["per_layer"] += entries["per_layer"]
     return bench
+
+
+def cell_names(bench: dict) -> list:
+    return [w["name"] for w in bench["workloads"]]
+
+
+def declared_faults(tests_dir: Path = Path(__file__).parent) -> dict:
+    """{generator: [fault tests]}: the union of the module-level ``COVERS``
+    of every ``test_h100_bench_faults*.py``, each test named with its file
+    (read from the source, so that no test module is imported twice)."""
+    covers: dict = {}
+    for path in sorted(tests_dir.glob("test_h100_bench_faults*.py")):
+        tree = ast.parse(path.read_text())
+        defined = {n.name for n in tree.body if isinstance(n, ast.FunctionDef)}
+        for node in tree.body:
+            if isinstance(node, ast.Assign) and any(
+                    isinstance(t, ast.Name) and t.id == "COVERS" for t in node.targets):
+                for generator, tests in ast.literal_eval(node.value).items():
+                    missing = set(tests) - defined
+                    if missing:
+                        raise ValueError(f"{path.name}: COVERS names {sorted(missing)}, "
+                                         "which the file does not define")
+                    covers.setdefault(generator, []).extend(f"{path.name}::{t}" for t in tests)
+    return covers
+
+
+def uncovered_generators(bench: dict, covers: dict) -> list:
+    """The generators that some cell of ``bench`` uses and no fault test
+    covers."""
+    used = {harness.read_json("workloads", f"{name}.json")["generator"]
+            for name in cell_names(bench)}
+    return sorted(g for g in used if not covers.get(g))
 
 
 def tiny_files(cell: str, n: int = 6):

@@ -6,24 +6,72 @@ The faults: a token or an answer altered where it is produced; a step that
 returns its state unchanged; half of the batch left out, the loss scaled
 to the whole batch.  (No cell runs on more than one chip, so none has an
 exchange between chips to leave out.)
+
+Every cell, the spares included, gets the sound runs.  The faults are
+declared by generator in ``COVERS``: a cell of a generator that a faults
+file covers needs no edit here; a cell of a new generator brings its own
+``test_h100_bench_faults_<generator>.py`` with its ``COVERS``.
 """
 
 import json
+import os
+import shutil
+import subprocess
+import sys
 
 import numpy as np
 import pytest
 import torch
-from conftest import bench_with_spares, run_tiny
+from conftest import (ROOT, bench_with_spares, cell_names, declared_faults, run_tiny,
+                      uncovered_generators)
 
-CELLS = ["alarm.island_cem", "hepar2.train", "alarm.dense_climb", "hepar2.delta_climb.binary"]
+CELLS = cell_names(bench_with_spares())
 
-
-def names():
-    return [w["name"] for w in bench_with_spares()["workloads"]]
+#: the fault tests of each generator, in this file
+COVERS = {
+    "island_cem": ["test_a_decoded_token_altered", "test_a_candidate_score_altered"],
+    "train": ["test_a_training_step_that_leaves_its_state",
+              "test_a_long_chunk_that_trains_on_its_first_batch", "test_half_the_batch_left_out"],
+    "dense_climb": ["test_a_climb_that_leaves_its_start", "test_a_climb_answer_altered"],
+    "delta_climb": ["test_a_climb_that_leaves_its_start", "test_a_climb_answer_altered",
+                    "test_a_family_score_altered"],
+}
 
 
 def test_the_faults_cover_every_cell():
-    assert sorted(CELLS) == sorted(names())
+    assert uncovered_generators(bench_with_spares(), declared_faults()) == []
+
+
+@pytest.mark.parametrize("generator,covered", [("island_cem", True), ("no_such_generator", False)])
+def test_a_further_cell_needs_no_edit_here(tmp_path, generator, covered):
+    """A copy of the benchmark with one more cell, added by its workload
+    file and its entry in BENCHMARK.json alone: of a generator that a
+    faults file covers, these tests take it unedited (its sound runs among
+    them); of one that none covers, the coverage check fails."""
+    bench = json.loads((ROOT / "BENCHMARK.json").read_text())
+    shutil.copytree(ROOT / "h100_bench", tmp_path / "h100_bench",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    name = "alarm.island_cem.further"
+    wl = json.loads((ROOT / "h100_bench" / "workloads" / "alarm.island_cem.json").read_text())
+    wl.update(traffic="further", generator=generator)
+    (tmp_path / "h100_bench" / "workloads" / f"{name}.json").write_text(json.dumps(wl))
+    bench["workloads"].append({"name": name, "config": wl["config"], "traffic": "further",
+                               "chips": 1, "why": "a further cell"})
+    (tmp_path / "BENCHMARK.json").write_text(json.dumps(bench))
+
+    def pytest_in_copy(*args):
+        return subprocess.run(
+            [sys.executable, "-m", "pytest", "-q", "-p", "no:cacheprovider", "-p", "no:xdist",
+             "-p", "no:randomly", "h100_bench/tests/test_h100_bench_faults.py", *args],
+            cwd=tmp_path, capture_output=True, text=True, timeout=300,
+            env={**os.environ, "PYTHONPATH": ""})
+
+    collected = pytest_in_copy("--collect-only", "-k", "test_sound_runs_are_correct")
+    for trace in (False, True):
+        assert f"test_sound_runs_are_correct[{trace}-{name}]" in collected.stdout, collected.stdout
+    check = pytest_in_copy("-k", "test_the_faults_cover_every_cell")
+    assert (check.returncode == 0) == covered, check.stdout[-2000:]
+    assert covered or f"['{generator}'] == []" in check.stdout, check.stdout[-2000:]
 
 
 @pytest.mark.parametrize("cell", CELLS)
