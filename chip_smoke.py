@@ -36,7 +36,12 @@ order; any failure exits non-zero:
    entries are checked and timed again, and the score entry checked (two
    launches bit-equal) and timed in turns against the parent's path (the
    fused entry's counts reduced in torch), kernel, whole score step and
-   peak memory;
+   peak memory; then one decode of ``DECODE_HOLD_ROWS`` latents (the island
+   decode's rows) with every launch of the decode-attention kernel held
+   against its plain version on the same inputs (``DECODE_RTOL``), each
+   timed beside it and its bound.  Here and in phases 7, 9, 10, 13, 14 and
+   16 every path that decodes reads the kernel's launches from its own run:
+   whole decodes, 2 x layers x (max_n - 1) launches each;
 5. training — the alarm registry experiment (16,260,634 parameters, its
    ``TrainConfig`` as the registry gives it) on a corpus from
    ``generate_corpus`` with one cut (corpus batch 8 instead of 64), split
@@ -129,7 +134,9 @@ order; any failure exits non-zero:
    ``utils.profiling.trace`` window for the device's busy share, and the
    eval-mode loss of a few test graphs against a CPU copy; checkpoint round
    trip (bit-equal) and eval (``valid_ratio_mode`` 1); ``decode_and_score``
-   on a decoded population of islands x population latents, one delta climb
+   on a decoded population of islands x population latents, a decode of as
+   many latents with every decode-attention launch held as in phase 4
+   (d_head 8, up to 726 keys), one delta climb
    at the registry's accept batch under a wall cap, and one island CEM at
    the tier's islands x population.  Every fused and family launch of the
    search steps is held bit for bit against its plain version as it
@@ -197,9 +204,9 @@ order; any failure exits non-zero:
    bit), on the route ``route()`` picks.
 
 The last stdout line is ``{"ok": true, "device": {...}}``; the line before
-it holds the kernels' JSON record (four entries, each with its narrow and
-its wide route, and the family entry's one-warp kernel, kept for timing on
-no path), a ``route_sweep:`` line phase 2b, a ``train:`` line phases 5-8, a ``search_stage:``
+it holds the kernels' JSON record (the decode attention's, from phases 4
+and 14; four entries, each with its narrow and its wide route, and the
+family entry's one-warp kernel, kept for timing on no path), a ``route_sweep:`` line phase 2b, a ``train:`` line phases 5-8, a ``search_stage:``
 line phase 9, a ``pipeline:`` line phase 10, and ``wide_rows:``,
 ``native_codec:`` and ``data_parallel:`` lines phases 11-13, a ``tier`` line
 phase 14, a ``small_tier`` line phase 15 and a ``large_tier`` line phase
@@ -330,6 +337,18 @@ KERNELS = ("node_scores_fused", "node_scores_fused_wide", "contingency_counts_fu
 #: the score entry against its plain version: float32 sums of the same
 #: terms in another order, within 1e-5 relative or 1e-3 absolute
 SCORE_RTOL, SCORE_ATOL = 1e-5, 1e-3
+#: the decode-attention kernel against its plain version: float32 sums of
+#: the same terms in another order, within 1e-6 of the call's largest output
+DECODE_RTOL = 1e-6
+#: rows of phase 4's held decode: the island decode's 8 islands x 4,096
+DECODE_HOLD_ROWS = 32_768
+#: cycles the card sleeps ahead of each held decode-attention call, so that
+#: the host has queued the kernel and the plain version before either runs
+DECODE_SLEEP_CYCLES = 2_000_000
+DECODE_SOURCE = "dags_vae_search_tpu_torch/csrc/decode_attention.cu"
+#: phase 9's steps that decode latents
+LATENT_STEPS = ("island_cem", "latent_refined", "gp_ascent", "bo", "budget_gp_ascent",
+                "budget_bo", "budget_island_cem")
 #: candidates a call of the score entry's plain version when phase 4 and
 #: phase 9 hold their launches (rows of 512 bins), and phase 11 (65,536)
 ALARM_HOLD_CANDIDATES, WIDE_HOLD_CANDIDATES = 512, 64
@@ -796,10 +815,11 @@ def phase_train_card_vs_cpu(torch) -> None:
 
 
 def _counters() -> dict:
-    """Each route's wrapper, by its record name."""
-    from dags_vae_search_tpu_torch.ops import bic_kernel
+    """Each route's wrapper, by its record name, and the decode's attention."""
+    from dags_vae_search_tpu_torch.ops import bic_kernel, decode_attention
 
-    return {"node_scores_fused": bic_kernel.node_scores_fused,
+    return {"decode_attention": decode_attention.decode_attention,
+            "node_scores_fused": bic_kernel.node_scores_fused,
             "node_scores_fused_wide": bic_kernel.node_scores_fused_wide,
             "contingency_counts_fused": bic_kernel.contingency_counts_fused,
             "contingency_counts_fused_wide": bic_kernel.contingency_counts_fused_wide,
@@ -817,6 +837,102 @@ def reset_launches() -> None:
 
 def read_launches() -> dict:
     return {name: fn.launches for name, fn in _counters().items()}
+
+
+def bic_launches(launches: dict) -> int:
+    """The counts entries' launches, every route (the decode's left out)."""
+    return sum(launches[name] for name in KERNELS)
+
+
+def decode_calls(model) -> int:
+    """Decode-attention launches of one sampling decode: self and cross
+    attention of each decoder layer at each of its max_n - 1 positions."""
+    return 2 * model.decoder.num_layers * (model.max_n - 1)
+
+
+def check_decodes(launches: dict, model, label: str, decodes: int | None = None) -> None:
+    """A path's decode-attention launches are ``decodes`` whole decodes (a
+    positive number of them where None)."""
+    got, per = launches["decode_attention"], decode_calls(model)
+    ok = got == decodes * per if decodes is not None else got > 0 and got % per == 0
+    check(ok, f"{label}: {got} decode-attention launches, want "
+              f"{decodes if decodes is not None else 'whole'} decodes of {per}")
+
+
+def hold_decode(torch, model, rows: int, label: str, clock_hz: float,
+                max_in_degree: int | None = None) -> dict:
+    """One sampling decode of ``rows`` seeded latents with every launch of
+    the decode-attention kernel held against its plain version on the same
+    inputs (the decode's own cache views and masks): the largest difference
+    over the call's largest plain output within ``DECODE_RTOL``.  Each call
+    is timed alone, the card asleep while the host queues the kernel and
+    the plain version, by CUDA events around each; its bound is the bytes
+    it must move (its admitted keys and values, the query, the mask column,
+    the output).  The decode goes on with the kernel's outputs.  Totals by
+    cache layout: the self-attention buffer and the memory's keys and
+    values."""
+    from dags_vae_search_tpu_torch.models import transformer
+    from dags_vae_search_tpu_torch.models.decode import decode_to_labeled
+    from dags_vae_search_tpu_torch.ops import decode_attention as da
+
+    check(model.matmul_dtype is None, f"{label}: the held decode is float32's")
+    kernel = transformer.decode_attention
+    layouts = {key: {"calls": 0, "ms": 0.0, "plain_ms": 0.0, "bytes": 0.0, "keys": 0.0,
+                     "admitted_keys": 0.0} for key in ("self", "cross")}
+    worst = {"rel_err": 0.0, "late_calls": 0}
+
+    def held(q, k, v, mask, matmul_dtype=None):
+        b, h, length, d = k.shape
+        events = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        torch.cuda._sleep(DECODE_SLEEP_CYCLES)
+        events[0].record()
+        out = kernel(q, k, v, mask, matmul_dtype)
+        events[1].record()
+        want = da.decode_attention_plain(q, k, v, mask, matmul_dtype)
+        events[2].record()
+        worst["late_calls"] += int(events[0].query())
+        events[2].synchronize()
+        err = float((out - want).abs().max() / want.abs().max())
+        check(err <= DECODE_RTOL, f"{label}: decode attention at L={length} differs from "
+                                  f"the plain version by {err:.3g} of its largest output")
+        worst["rel_err"] = max(worst["rel_err"], err)
+        admitted = float(mask[:, :-1].sum()) + b
+        rec = layouts["cross" if k.stride(2) == d else "self"]
+        rec["calls"] += 1
+        rec["ms"] += events[0].elapsed_time(events[1])
+        rec["plain_ms"] += events[1].elapsed_time(events[2])
+        rec["bytes"] += 4.0 * (2 * h * d * admitted + 2 * b * h * d + b * (length - 1))
+        rec["keys"] += b * length
+        rec["admitted_keys"] += admitted
+        return out
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    z = torch.randn((rows, model.latent_size), generator=gen, device="cuda")
+    before = da.decode_attention.launches
+    transformer.decode_attention = held
+    try:
+        decode_to_labeled(model, z, gen, max_in_degree=max_in_degree)
+        torch.cuda.synchronize()
+    finally:
+        transformer.decode_attention = kernel
+    calls = da.decode_attention.launches - before
+    check(calls == decode_calls(model) == sum(r["calls"] for r in layouts.values()),
+          f"{label}: {calls} decode-attention launches, want {decode_calls(model)}")
+    for rec in layouts.values():
+        rec.update(bound_of(rec["bytes"], 0.0, clock_hz))
+        rec["admitted_share"] = rec.pop("admitted_keys") / rec.pop("keys")
+    total = bound_of(sum(r["bytes"] for r in layouts.values()), 0.0, clock_hz)
+    out = {"rows": rows, "heads": model.decoder.layer0.self_attn.num_heads,
+           "d_head": model.d_model // model.decoder.layer0.self_attn.num_heads,
+           "positions": model.max_n - 1, "calls": calls, "max_rel_err": worst["rel_err"],
+           "late_calls": worst["late_calls"],
+           "ms": sum(r["ms"] for r in layouts.values()),
+           "plain_ms": sum(r["plain_ms"] for r in layouts.values()), **total,
+           "by_layout": layouts}
+    print(f"{label}: decode attention held on {calls} launches (max {out['max_rel_err']:.3g} of "
+          f"the largest output; {out['late_calls']} calls where the card woke first), "
+          + json.dumps(out))
+    return out
 
 
 def check_exact(scorer, best_score: float, cols: np.ndarray) -> float:
@@ -889,9 +1005,10 @@ def phase_search(torch, cfg, scorer, clock_hz) -> tuple:
 
     check(len(stamps) == CEM_ITERS, f"{len(stamps)} score calls in {CEM_ITERS} iterations")
     check(launches["node_scores_fused"] == CEM_ITERS == held["score"]
-          and sum(launches.values()) == CEM_ITERS,
+          and bic_launches(launches) == CEM_ITERS,
           f"score kernel launched {launches['node_scores_fused']} times in {CEM_ITERS} "
           f"iterations: {launches}")
+    check_decodes(launches, model, "CEM search", decodes=CEM_ITERS)
     check(result.num_evals == CEM_ITERS * pop, "evaluation count")
     check(all(b >= a for a, b in zip(result.history, result.history[1:])), "history decreased")
     exact = check_best_exact(torch, scorer, result, cfg.num_vertices)
@@ -900,6 +1017,7 @@ def phase_search(torch, cfg, scorer, clock_hz) -> tuple:
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     z = torch.randn((pop, model.latent_size), generator=gen, device="cuda")
     torch.cuda.synchronize()
+    reset_launches()
     t0 = time.perf_counter()
     recon, valid = decode_to_labeled(
         model, z, gen, max_in_degree=scorer.max_parents
@@ -907,6 +1025,7 @@ def phase_search(torch, cfg, scorer, clock_hz) -> tuple:
     relabeled, is_perm = _relabel_and_check(recon.labels, recon.adj)
     torch.cuda.synchronize()
     decode_ms = (time.perf_counter() - t0) * 1e3
+    check_decodes(read_launches(), model, "one decoded population", decodes=1)
     t0 = time.perf_counter()
     scores = scorer.score(relabeled)
     torch.cuda.synchronize()
@@ -916,6 +1035,9 @@ def phase_search(torch, cfg, scorer, clock_hz) -> tuple:
     decoded = time_entries(torch, scorer, relabeled, "decoded candidates", clock_hz)
     decoded["score_entry"] = time_score_entry(torch, scorer, relabeled, "decoded candidates",
                                               clock_hz, chunk=ALARM_HOLD_CANDIDATES)
+    decoded["decode_attention"] = hold_decode(torch, model, DECODE_HOLD_ROWS,
+                                              "alarm island decode", clock_hz,
+                                              max_in_degree=scorer.max_parents)
     search = {
         "params": params,
         "population": pop,
@@ -991,7 +1113,7 @@ def phase_train(torch, cfg) -> tuple:
           f"{chunked[0]['loss_per_graph']}")
     check(state.step == TRAIN_EPOCHS * (len(train_c) // b) + PER_STEP_STEPS,
           f"{state.step} optimizer steps")
-    check(chunked_run["launches"] == per_step_run["launches"] == dict.fromkeys(KERNELS, 0),
+    check(chunked_run["launches"] == per_step_run["launches"] == dict.fromkeys(_counters(), 0),
           "a kernel launched in training")
     for name, hist, run_info in (("chunked", chunked, chunked_run),
                                  ("per-step", per_step, per_step_run)):
@@ -1057,8 +1179,9 @@ def phase_train_search(torch, cfg, scorer, model) -> dict:
     torch.cuda.synchronize()
     search_s = time.perf_counter() - t0
     launches = read_launches()
-    check(launches["node_scores_fused"] == 1 and sum(launches.values()) == 1,
+    check(launches["node_scores_fused"] == 1 and bic_launches(launches) == 1,
           f"score kernel launched {launches['node_scores_fused']} times in one iteration")
+    check_decodes(launches, model, "trained-model CEM iteration", decodes=1)
     exact = check_best_exact(torch, scorer, result, cfg.num_vertices)
     print(f"trained-model CEM iteration: {pop} candidates in {search_s:.3f} s, best BIC "
           f"{result.best_score:.2f} (float64 {exact:.4f}), launches {launches}")
@@ -1197,15 +1320,15 @@ def picked_cluster(args) -> int | str:
     return bic_kernel._family_cluster(parents, codes_cm, w, q_cap, r_max)
 
 
-def ptxas_report() -> dict:
+def ptxas_report(source: str = "contingency_counts") -> dict:
     """Registers, stack, spills and static shared memory of each kernel of
-    ``csrc/contingency_counts.cu`` from this run's ``nvcc -Xptxas -v``
-    output, by mangled name (empty when the library was built earlier)."""
+    ``csrc/<source>.cu`` from this run's ``nvcc -Xptxas -v`` output, by
+    mangled name (empty when the library was built earlier)."""
     from dags_vae_search_tpu_torch.ops import _build
 
     out: dict = {}
     name = None
-    for line in _build.build_logs.get("contingency_counts", "").splitlines():
+    for line in _build.build_logs.get(source, "").splitlines():
         if "Compiling entry function" in line:
             name = line.split("'")[1]
             out[name] = {}
@@ -1776,8 +1899,10 @@ def phase_search_stage(torch, cfg, scorer, dataset, model, test_c, clock_hz) -> 
         entry = {"delta_hill_climb": "contingency_counts_family",
                  "gp_fit": "contingency_counts_fused"}.get(name, "node_scores_fused")
         launches = info["launches"]
-        check(launches[entry] > 0 and sum(launches.values()) == launches[entry],
+        check(launches[entry] > 0 and bic_launches(launches) == launches[entry],
               f"{name}: launches {launches}")
+        if name in LATENT_STEPS:
+            check_decodes(launches, model, name)
 
     # the dense climb with restarts on the parent's path and on the score
     # entry, in turns (no check inside: the step above held every launch)
@@ -1864,7 +1989,7 @@ def phase_wide_rows(torch, alarm_scorer, clock_hz) -> dict:
                              ("delta_climb", delta, "contingency_counts_family_wide")):
         info = steps[name]
         launches = info["launches"]
-        check(launches[entry] > 0 and sum(launches.values()) == launches[entry],
+        check(launches[entry] > 0 and bic_launches(launches) == launches[entry],
               f"wide {name}: launches {launches}")
         check(all(b >= a for a, b in zip(res.history, res.history[1:])), f"{name} history decreased")
         info.update(best_bic=res.best_score, best_bic_exact=check_exact(scorer, res.best_score,
@@ -1960,6 +2085,7 @@ def _dp_islands(model_kwargs: dict, codes, cards, max_parents: int, mesh=None) -
     import torch
 
     from dags_vae_search_tpu_torch.models.pace_vae import make_model
+    from dags_vae_search_tpu_torch.ops import decode_attention
     from dags_vae_search_tpu_torch.scoring.bic import BicScorer
     from dags_vae_search_tpu_torch.scoring.datasets import DiscreteDataset
     from dags_vae_search_tpu_torch.search.islands import island_cem_search
@@ -1967,13 +2093,17 @@ def _dp_islands(model_kwargs: dict, codes, cards, max_parents: int, mesh=None) -
     dev = torch.device("cuda") if mesh is None else mesh.device
     scorer = BicScorer(DiscreteDataset(codes, cards, [f"x{i}" for i in range(codes.shape[1])]),
                        max_parents=max_parents, device=dev)
+    model = make_model(SEED, dev, **model_kwargs)
     torch.cuda.synchronize(dev)
+    decode_attention.decode_attention.launches = 0
     t0 = time.perf_counter()
-    res = island_cem_search(make_model(SEED, dev, **model_kwargs), scorer, seed=SEED,
+    res = island_cem_search(model, scorer, seed=SEED,
                             num_islands=DP_ISLANDS, population=DP_POPULATION, iters=DP_ITERS,
                             temperature_range=(1e-3, 1e-3), device=dev, mesh=mesh)
     torch.cuda.synchronize(dev)
-    return {**res._asdict(), "seconds": time.perf_counter() - t0}
+    return {**res._asdict(), "seconds": time.perf_counter() - t0,
+            "decode_launches": decode_attention.decode_attention.launches,
+            "decode_calls": decode_calls(model)}
 
 
 def _dp_rank(mesh, model_kwargs, train_cfg, corpus, codes, cards, max_parents) -> dict:
@@ -2100,6 +2230,10 @@ def phase_data_parallel(torch, cfg, train_c, dataset) -> dict:
               f"{alone['best_score']}")
         check(got["num_evals"] == DP_ISLANDS * DP_POPULATION * DP_ITERS + DP_ISLANDS * 32,
               f"island evals {got['num_evals']}")
+    for got in [alone, *(rank["islands"] for rank in ranks)]:
+        check(got["decode_launches"] > 0 and got["decode_launches"] % got["decode_calls"] == 0,
+              f"island CEM: {got['decode_launches']} decode-attention launches, want whole "
+              f"decodes of {got['decode_calls']}")
     out["islands_two_ranks"] = {
         "islands": DP_ISLANDS, "population": DP_POPULATION, "iters": DP_ITERS,
         "best_bic": alone["best_score"], "history": alone["history"],
@@ -2306,6 +2440,8 @@ def phase_pipeline(torch, cfg, name: str, corpus, train_c, test_c, hc_best: floa
     # are float64 exact scores
     check(stages["search"]["launches"]["node_scores_fused"] > 0
           and stages["search"]["launches"]["contingency_counts_fused"] > 0,
+          f"search: launches {stages['search']['launches']}")
+    check(stages["search"]["launches"]["decode_attention"] > 0,
           f"search: launches {stages['search']['launches']}")
     check(stages["predictor"]["launches"]["contingency_counts_fused"] > 0,
           "predictor: no fused launch")
@@ -2589,8 +2725,9 @@ def phase_tier(torch, cfg, clock_hz) -> dict:
         info = steps["decode_and_score"]
         finite = torch.isfinite(scores)
         check(info["launches"]["node_scores_fused"] == 1 == info["held"]["score"]
-              and sum(info["launches"].values()) == 1,
+              and bic_launches(info["launches"]) == 1,
               f"decode_and_score launches {info['launches']}")
+        check_decodes(info["launches"], model, "link decode_and_score", decodes=1)
         check(bool(finite.any()), "no decoded link DAG scored finite")
         best = int(torch.argmax(scores))
         relabeled, _ = _relabel_and_check(labels, adj)
@@ -2602,6 +2739,8 @@ def phase_tier(torch, cfg, clock_hz) -> dict:
                                                relabeled[best].cpu().numpy()))
         print("link decode_and_score: " + json.dumps(info))
         peak_of("decode_and_score")
+        out["decode_attention"] = hold_decode(torch, model, pop, "link decode", clock_hz,
+                                              max_in_degree=s.max_parents)
         fused_t = hold_fused(torch, scorer, relabeled, "decoded link population", clock_hz,
                              chunk=TIER_HOLD_CANDIDATES)
         del scores, labels, adj, relabeled
@@ -2613,7 +2752,7 @@ def phase_tier(torch, cfg, clock_hz) -> dict:
             time_budget_s=TIER_CLIMB_S, accept_batch=s.hill_climb_accept_batch))
         info = steps["delta_hill_climb"]
         check(info["launches"]["contingency_counts_family"] == info["held"]["family"] > 0
-              and sum(info["launches"].values()) == info["launches"]["contingency_counts_family"],
+              and bic_launches(info["launches"]) == info["launches"]["contingency_counts_family"],
               f"delta climb launches {info['launches']}")
         check(all(b >= a for a, b in zip(climb.history, climb.history[1:])), "climb history decreased")
         info.update(moves=climb.iterations, converged=bool(climb.converged),
@@ -2632,8 +2771,9 @@ def phase_tier(torch, cfg, clock_hz) -> dict:
             exploit_repeats=TIER_EXPLOIT, device="cuda"))
         info = steps["island_cem"]
         check(info["launches"]["node_scores_fused"] == TIER_ISLAND_ITERS + 1
-              == info["held"]["score"] and sum(info["launches"].values()) == TIER_ISLAND_ITERS + 1,
+              == info["held"]["score"] and bic_launches(info["launches"]) == TIER_ISLAND_ITERS + 1,
               f"island CEM launches {info['launches']}")
+        check_decodes(info["launches"], model, "link island CEM")
         check(all(b >= a for a, b in zip(isl.history, isl.history[1:])), "island history decreased")
         info.update(evals=isl.num_evals, evals_per_s=isl.num_evals / info["seconds_without_checks"],
                     best_bic=isl.best_score, best_bic_exact=check_best_exact(torch, scorer, isl, n))
@@ -3251,6 +3391,7 @@ def phase_large_tier(torch, clock_hz) -> dict:
                                                                 "relative_error", "decode_valid")}}
         check(out["hepar2"]["gp"]["model"] == "ExactGP", "the hepar2 GP is not the exact GP")
         launches = steps["large_search"]["launches"]
+        check(launches["decode_attention"] > 0, f"hepar2 search: launches {launches}")
         check(launches["contingency_counts_family"] > 0 and launches["node_scores_fused"] > 0
               and launches["contingency_counts_fused"] > 0
               and launches["contingency_counts"] == launches["contingency_counts_wide"] == 0,
@@ -3401,7 +3542,26 @@ def kernel_records(search: dict, er: dict, decoded: dict, stage: dict, wide: dic
                 "float_ops": rec.get("float_ops", 0.0)}
 
     dec, barley = scored["decoded_population"], scored["barley_climb_chunk"]
+    attn, link_attn = decoded["decode_attention"], tier["decode_attention"]
     return [
+        {"name": "decode_attention", "route": "cuda", "source": DECODE_SOURCE,
+         "replaces": "none: XLA lowers the JAX decode's attention; the port's cached decode",
+         "launches": sum(path["decode_attention"] for path in launches_by_path.values()),
+         "launches_by_path": {p: path["decode_attention"] for p, path in launches_by_path.items()
+                              if path["decode_attention"]},
+         "held_calls": attn["calls"] + link_attn["calls"],
+         "max_rel_err": max(attn["max_rel_err"], link_attn["max_rel_err"]),
+         "tolerance": {"of_largest_output": DECODE_RTOL},
+         "ms": attn["ms"], "plain_ms": attn["plain_ms"], "bound_ms": attn["bound_ms"],
+         "bound_by": attn["bound_by"], "bytes": attn["bytes"], "int_ops": 0.0,
+         "inputs": f"one alarm island decode ({attn['rows']} rows x {attn['heads']} heads, "
+                   f"d_head {attn['d_head']}, L 1-{attn['positions']}, its own masks), "
+                   f"{attn['calls']} launches summed",
+         "library_ms": None,
+         "library": "none: the port calls no library attention; plain_ms is the path the "
+                    "kernel replaced (baddbmm, softmax, bmm)",
+         "by_layout": attn["by_layout"], "link_decode": link_attn,
+         "ptxas": ptxas_report("decode_attention")},
         record("node_scores_fused", score_main(dec, "decoded population"), None, {
             "library": "none: no one PyTorch call computes the counts and the scores",
             "tolerance": {"rtol": SCORE_RTOL, "atol": SCORE_ATOL, "between_launches": 0.0},

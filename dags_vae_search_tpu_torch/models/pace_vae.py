@@ -325,12 +325,9 @@ class PaceVAE(nn.Module):
         tgt = torch.cat([cache.label_table[labels[:, j]],
                          round_operand(pos, md) @ cache.pos_w2], dim=-1)
         # j may attend k <= j iff path k -> j or k == j
-        heads = self.decoder.layer0.self_attn.num_heads
-        bias = (reach[:, :j + 1, j] - 1.0) * 1e30
-        bias[:, j] = 0.0
-        bias = bias[:, None, None, :].expand(-1, heads, 1, -1).reshape(-1, 1, j + 1)
+        mask = reach[:, :j + 1, j]
         for i, state in enumerate(cache.layers):
-            tgt = getattr(self.decoder, f"layer{i}").step(tgt, state, j, bias)
+            tgt = getattr(self.decoder, f"layer{i}").step(tgt, state, j, mask)
         torch.mm(round_operand(tgt, md), cache.edge_w_parent_t, out=cache.parent_half[j + 1])
         return tgt
 

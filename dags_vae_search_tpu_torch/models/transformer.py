@@ -28,6 +28,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from dags_vae_search_tpu_torch.ops.decode_attention import BLOCKED, decode_attention, round_operand
+
 
 class Dense(nn.Linear):
     """Linear layer with torch's default init (U(±1/sqrt(fan_in)) for weight
@@ -66,13 +68,6 @@ def dropout(
     keep = 1.0 - rate
     scale = torch.empty_like(x).bernoulli_(keep, generator=generator).div_(keep)
     return x * scale
-
-
-def round_operand(x: torch.Tensor, matmul_dtype: Optional[str]) -> torch.Tensor:
-    """``x`` rounded to ``matmul_dtype`` and back to float32 (no-op if None)."""
-    if matmul_dtype is None:
-        return x
-    return x.to(getattr(torch, matmul_dtype)).to(torch.float32)
 
 
 class MultiHeadAttention(nn.Module):
@@ -116,36 +111,34 @@ class MultiHeadAttention(nn.Module):
         if allowed is not None:
             if allowed.dim() == 2:
                 allowed = allowed[None]
-            logits = logits.masked_fill(~allowed[:, None, :, :], -1e30)
+            logits = logits.masked_fill(~allowed[:, None, :, :], -BLOCKED)
         weights = dropout(torch.softmax(logits, dim=-1), self.dropout, self.training, generator)
         out = round_operand(weights, md) @ round_operand(v, md)
         return self.out_proj(out.transpose(1, 2).reshape(b, nq, d_model))
 
     def keys_values(self, x: torch.Tensor):
-        """The keys and values of ``x`` [B, N, D] with the heads folded into the
-        batch, [B·H, N, d_head] each, rounded as :meth:`forward` rounds them
-        for its products: what :meth:`attend` reads."""
+        """The keys and values of ``x`` [B, N, D] by head, [B, H, N, d_head]
+        each, contiguous, rounded as :meth:`forward` rounds them for its
+        products: what :meth:`attend` reads."""
         b, n, d_model = x.shape
         md, h = self.matmul_dtype, self.num_heads
 
         def heads(y):
             y = y.reshape(b, n, h, d_model // h).transpose(1, 2)
-            return round_operand(y, md).reshape(b * h, n, d_model // h)
+            return round_operand(y, md).contiguous()
 
         return heads(self.k_proj(x)), heads(self.v_proj(x))
 
     def attend(self, query: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-               bias: torch.Tensor) -> torch.Tensor:
+               mask: torch.Tensor) -> torch.Tensor:
         """:meth:`forward` without dropout for one query a row, ``query`` [B,
-        D], over keys and values [B·H, Nk, d_head] as :meth:`keys_values`
-        makes them; ``bias`` [B·H, 1, Nk] is 0 where the query may attend and
-        -1e30 where not (the blocked logit of :meth:`forward`)."""
-        b, d_model = query.shape
+        D] at position L - 1, over keys and values [B, H, L, d_head] as
+        :meth:`keys_values` makes them (views); it attends position ``l < L -
+        1`` where ``mask`` [B, L] is 1 (0: blocked) and itself
+        (``ops.decode_attention``: the CUDA kernel on the card)."""
         md = self.matmul_dtype
-        q = round_operand(self.q_proj(query), md).view(b * self.num_heads, 1, -1)
-        logits = torch.baddbmm(bias, q, k.transpose(1, 2), alpha=1.0 / k.shape[-1] ** 0.5)
-        out = round_operand(torch.softmax(logits, dim=-1), md) @ v
-        return self.out_proj(out.view(b, d_model))
+        q = round_operand(self.q_proj(query), md)
+        return self.out_proj(decode_attention(q, k, v, mask, md))
 
 
 class EncoderLayer(nn.Module):
@@ -208,20 +201,19 @@ class DecoderLayer(nn.Module):
         return (kv, self.cross_attn.keys_values(memory), w,
                 torch.cat([sa.k_proj.bias, sa.v_proj.bias]))
 
-    def step(self, tgt: torch.Tensor, state: tuple, j: int, bias: torch.Tensor):
+    def step(self, tgt: torch.Tensor, state: tuple, j: int, mask: torch.Tensor):
         """:meth:`forward` without dropout for position ``j`` alone, ``tgt`` [B,
         D] its input, ``state`` from :meth:`begin_decode` holding positions
         ``0 .. j - 1``: writes its keys and values there, and it attends
-        positions ``0 .. j`` as ``bias`` [B·H, 1, j + 1] allows
+        itself and the positions ``l < j`` where ``mask`` [B, j + 1] is 1
         (:meth:`MultiHeadAttention.attend`)."""
         kv, (ck, cv), w_kv, b_kv = state
         b, h, sa = tgt.shape[0], kv.shape[1], self.self_attn
         new = F.linear(round_operand(tgt, sa.matmul_dtype), w_kv, b_kv)
         kv[:, :, j] = round_operand(new, sa.matmul_dtype).view(b, 2, h, -1).transpose(1, 2)
-        k = kv[:, :, :j + 1, 0].reshape(b * h, j + 1, -1)
-        v = kv[:, :, :j + 1, 1].reshape(b * h, j + 1, -1)
-        tgt = self.norm1(tgt + sa.attend(tgt, k, v, bias))
-        tgt = self.norm2(tgt + self.cross_attn.attend(tgt, ck[:, :j + 1], cv[:, :j + 1], bias))
+        tgt = self.norm1(tgt + sa.attend(tgt, kv[:, :, :j + 1, 0], kv[:, :, :j + 1, 1], mask))
+        tgt = self.norm2(tgt + self.cross_attn.attend(tgt, ck[:, :, :j + 1], cv[:, :, :j + 1],
+                                                      mask))
         return self.norm3(tgt + self.linear2(F.relu(self.linear1(tgt))))
 
 

@@ -6,6 +6,11 @@ Every test here needs a CUDA card and skips without one; whether there is a
 card is decided inside the ``cuda`` fixture, never at import.  On the card:
 ``python -m pytest -m gpu tests/test_torch_gpu.py``.
 
+The decode-attention kernel against its plain version (torch on the card):
+float32 outputs to 1e-6 of their largest; with bfloat16 weight rounding a
+weight one float32 ulp away may round to the next bfloat16 value, so to
+2^-7 of the largest value, and all but 1% of the (row, head) pairs to 1e-6.
+
 Counts are integer sums below 2^24, exact in float32 in any atomic order,
 so kernel and plain version must agree bit for bit.  Scores sum the same
 cells in another order on the card: rtol 1e-5.  A train step on the card
@@ -19,7 +24,7 @@ import torch
 
 from dags_vae_search_tpu_torch.graphs import sampler
 from dags_vae_search_tpu_torch.models import decode, pace_vae
-from dags_vae_search_tpu_torch.ops import bic_kernel, bic_torch
+from dags_vae_search_tpu_torch.ops import bic_kernel, bic_torch, decode_attention
 from dags_vae_search_tpu_torch.scoring.bic import BicScorer
 from dags_vae_search_tpu_torch.scoring.catalog import make_synthetic_problem
 from dags_vae_search_tpu_torch.training import data as tdata
@@ -939,3 +944,132 @@ def test_score_wrapper_rejects_what_it_cannot_take(cuda):
     kernel_args = (strides_t, q, codes_cm, args[2], args[3], 16, 2, args[6], "bic", 1.0)
     with pytest.raises(RuntimeError, match="cudaError"):  # lane-private bins past a warp
         bic_kernel._launch_scores(*kernel_args, small_span=64)
+
+
+# ---- the decode's one-query attention --------------------------------------
+
+#: (rows, heads, cache slots N, d_head, positions j run): asia and the
+#: default tier (d_head 8), a d_head-4 model, alarm (the island decode's 32,768
+#: rows, every position), hepar2 (the large tier, j up to 71), link (726
+#: positions, a choice of j that takes every group width of the kernel), and
+#: the widths the runner's --embed-size and --num-heads can give beyond the
+#: registry's: d_head 32 and 64 (the any-size kernel's 16-byte chunks, at
+#: every group width), 12 (chunks past the specialised sizes) and 6 (one
+#: float at a time).
+ATTENTION_SHAPES = {
+    "asia": (4096, 8, 11, 8, range(10)),
+    "d_head4": (1024, 4, 11, 4, range(10)),
+    "alarm": (32768, 8, 40, 16, range(39)),
+    "hepar2": (4096, 8, 73, 16, range(72)),
+    "link": (16, 8, 727, 8, (0, 1, 7, 8, 15, 16, 31, 32, 63, 64, 127, 128, 255, 256, 511, 725)),
+    "d_head32": (512, 4, 300, 32, (0, 7, 8, 15, 16, 31, 32, 63, 64, 127, 128, 255, 256, 299)),
+    "d_head64": (256, 2, 300, 64, (0, 7, 8, 31, 32, 63, 64, 127, 128, 255, 256, 299)),
+    "d_head12": (1024, 4, 40, 12, range(39)),
+    "d_head6": (1024, 4, 40, 6, range(39)),
+}
+
+
+def _attention_case(device, rows, heads, n, d, layout, seed=0):
+    """Keys and values by head in the decode's layout (the self-attention
+    buffer [B, H, N, 2, d] or separate [B, H, N, d] tensors), queries, and
+    the reach of random DAGs over the N slots in order."""
+    g = torch.Generator(device).manual_seed(seed)
+    if layout == "self":
+        kv = torch.randn((rows, heads, n, 2, d), device=device, generator=g)
+        k, v = kv[:, :, :, 0], kv[:, :, :, 1]
+    else:
+        k, v = (torch.randn((rows, heads, n, d), device=device, generator=g) for _ in range(2))
+    q = torch.randn((rows, heads * d), device=device, generator=g)
+    adj = torch.triu((torch.rand((rows, n, n), device=device, generator=g) < 2.0 / n).float(),
+                     diagonal=1)
+    reach = adj.clone()
+    for _ in range(max(1, (n - 1).bit_length())):
+        reach = torch.clamp(reach + reach @ reach, 0.0, 1.0)
+    return q, k, v, reach
+
+
+def _pair_disagreement(got, want, heads) -> float:
+    """The share of (row, head) pairs whose outputs part by more than 1e-6
+    of the largest output."""
+    diff = (got - want).abs().view(got.shape[0], heads, -1).amax(-1)
+    return float((diff > 1e-6 * want.abs().max()).float().mean())
+
+
+@pytest.mark.parametrize("matmul_dtype", [None, "bfloat16"], ids=["float32", "bf16"])
+@pytest.mark.parametrize("layout", ["self", "cross"])
+@pytest.mark.parametrize("shape", sorted(ATTENTION_SHAPES))
+def test_decode_attention_kernel_equals_plain(cuda, shape, layout, matmul_dtype):
+    """float32: to 1e-6 of the largest output.  bfloat16 weights: to 2^-7
+    of the largest value (a weight one float32 ulp from the plain one may
+    round to the next bfloat16 value), and at most 1% of the (row, head)
+    pairs past 1e-6, where the weights left unrounded part from the plain
+    version in most pairs that attend more than one key (checked on the
+    same inputs: the test tells a kernel that skips the rounding)."""
+    rows, heads, n, d, positions = ATTENTION_SHAPES[shape]
+    q, k, v, reach = _attention_case(cuda, rows, heads, n, d, layout)
+    tol = 1e-6 if matmul_dtype is None else 2.0**-7
+    moved, parted = [], []
+    for j in positions:
+        args = (q, k[:, :, :j + 1], v[:, :, :j + 1], reach[:, :j + 1, j], matmul_dtype)
+        before = decode_attention.decode_attention.launches
+        got = decode_attention.decode_attention(*args)
+        want = decode_attention.decode_attention_plain(*args)
+        torch.cuda.synchronize()
+        assert decode_attention.decode_attention.launches == before + 1
+        scale = want.abs().max() if matmul_dtype is None else v[:, :, :j + 1].abs().max()
+        err = float((got - want).abs().max() / scale)
+        assert err <= tol, (j, err)
+        if matmul_dtype is not None:
+            unrounded = decode_attention.decode_attention_plain(*args[:4], None)
+            moved.append(_pair_disagreement(unrounded, want, heads))
+            parted.append(_pair_disagreement(got, want, heads))
+    if matmul_dtype is not None:
+        assert max(moved) >= 0.1, moved
+        assert max(parted) <= 0.01, parted
+
+
+def test_decode_attention_kernel_takes_misaligned_views(cuda):
+    """Rows off 16-byte boundaries (d = 8 views one float into a wider
+    buffer) take the kernel's one-float loads, and equal the plain version
+    as the aligned layout does."""
+    q, k, v, reach = _attention_case(cuda, 256, 4, 40, 9, "self")
+    q = q.view(256, 4, 9)[..., 1:].reshape(256, 32)
+    for j in (0, 5, 20, 39):
+        args = (q, k[:, :, :j + 1, 1:], v[:, :, :j + 1, 1:], reach[:, :j + 1, j])
+        got = decode_attention.decode_attention(*args)
+        want = decode_attention.decode_attention_plain(*args)
+        assert float((got - want).abs().max() / want.abs().max()) <= 1e-6, j
+
+
+def test_decode_attention_wrapper_rejects_what_the_kernel_cannot_take(cuda):
+    q, k, v, reach = _attention_case(cuda, 4, 2, 8, 8, "cross")
+    mask = reach[:, :, 7]
+    with pytest.raises(ValueError, match="contiguous"):
+        decode_attention.decode_attention(q.t().contiguous().t(), k, v, mask)
+    with pytest.raises(ValueError, match="contiguous floats"):
+        decode_attention.decode_attention(q, k.transpose(2, 3).contiguous().transpose(2, 3)
+                                          [:, :, :, :8], v, mask)
+    with pytest.raises(ValueError, match="rounding"):
+        decode_attention.decode_attention(q, k, v, mask, "int8")
+    long = torch.zeros((1, 1, decode_attention.MAX_LENGTH + 1, 8), device=cuda)
+    with pytest.raises(ValueError, match="L="):
+        decode_attention.decode_attention(torch.zeros((1, 8), device=cuda), long, long,
+                                          torch.zeros((1, long.shape[2]), device=cuda))
+
+
+def test_alarm_decode_attends_through_the_kernel(cuda):
+    """One decode at alarm's widths (d_head 16, N = 40): 2 calls a layer (self
+    and cross) x 4 layers x 39 positions, all through the kernel, and no
+    library attention (``aten::baddbmm``) on the path."""
+    from torch.profiler import ProfilerActivity, profile
+
+    model = pace_vae.make_model(0, cuda, num_real_vertices=37, real_label_cardinality=37,
+                                embed_size=64, num_layers=4, latent_size=896, fc_hidden=64,
+                                edge_readout=True)
+    z = torch.randn(256, 896, device=cuda, generator=torch.Generator(cuda).manual_seed(0))
+    before = decode_attention.decode_attention.launches
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        decode.decode_to_labeled(model, z, torch.Generator(cuda).manual_seed(1), max_in_degree=8)
+        torch.cuda.synchronize()
+    assert decode_attention.decode_attention.launches - before == 2 * 4 * 39
+    assert "aten::baddbmm" not in {e.name for e in prof.events()}
