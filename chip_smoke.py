@@ -11,8 +11,7 @@ order; any failure exits non-zero:
    unique rows x 512 cells) on sampled ER candidates: the seg entry against
    its plain torch version, the fused entry against its plain version and
    against the seg entry (all bit-equal); times each entry, its plain
-   version, the ``torch.bincount`` yardstick and the unfused path the fused
-   entry replaces (``cell_index`` + seg entry) with CUDA events;
+   version and the ``torch.bincount`` yardstick with CUDA events;
 2b. route sweep — both routes of the fused, seg and family entries at
    S = 512 to 32,768 bins (``SWEEP_SHAPES``) and U = 698 / 5,000 unique
    rows of 11 / 70 variables (``SWEEP_ROWS``; seeded random codes), on 256
@@ -34,8 +33,7 @@ order; any failure exits non-zero:
    happens (``SCORE_RTOL`` / ``SCORE_ATOL``; the check's seconds left out);
    then one more decoded population, timed by phase, on which the count
    entries are checked and timed again, and the score entry checked (two
-   launches bit-equal) and timed in turns against the parent's path (the
-   fused entry's counts reduced in torch), kernel, whole score step and
+   launches bit-equal) and timed: kernel, entry, plain version and added
    peak memory; then one decode of ``DECODE_HOLD_ROWS`` latents (the island
    decode's rows) with every launch of the decode-attention kernel held
    against its plain version on the same inputs (``DECODE_RTOL``), each
@@ -71,17 +69,13 @@ order; any failure exits non-zero:
    (from that step alone; every launch held against its plain version as
    it happens; the delta climb launching the family entry alone, the GP
    fit the fused entry alone for its float64 targets, every other step
-   the score entry alone); the dense climb with restarts on the parent's
-   path and on the score entry in turns; then the fused entry held
-   bit-equal to its plain version and the score entry timed as in phase 4
-   on a dense-climb chunk and an island population, and the family and the seg
-   entry on four of the delta climb's chunks (first frontier, a one-child
-   refresh, every child of its final graph, a full chunk), each route timed
-   beside the path the family entry replaced (the cell table, then the seg
-   entry), and the family narrow kernel (a family's rows over a
-   thread-block cluster) against the one-warp-a-family kernel on the device
-   alone, in turns, at every forced cluster size and lane-private span,
-   beside the launch floor (an empty kernel) and the bound;
+   the score entry alone); then the fused entry held bit-equal to its plain
+   version and the score entry timed as in phase 4 on a dense-climb chunk
+   and an island population, and the family and the seg entry on four of
+   the delta climb's chunks (first frontier, a one-child refresh, every
+   child of its final graph, a full chunk), each route bit-equal to the
+   plain version and timed beside it, ``torch.bincount`` on the cells and
+   the bound;
 10. the pipeline — the port's ``ExperimentRunner`` on the alarm experiment
    in a temporary data dir on the card, with phase 5's and phase 9's cuts
    (corpus batch 8, 2 epochs, checkpointed at the end of them, island CEM
@@ -102,8 +96,7 @@ order; any failure exits non-zero:
    (``score_chunk`` 256, ``WIDE_CLIMB_STEPS`` steps, through the score
    entry's wide kernel) and a delta climb (its default chunk of 4,096
    families), every launch held, each best held to its float64 re-scores;
-   ``WIDE_COMPARE_STEPS`` steps of the dense climb on the parent's path and
-   on the score entry in turns; the fused wide kernel held bit-equal to
+   the fused wide kernel held bit-equal to
    its plain version on a climb chunk, the score entry timed there as in
    phase 4, the family and seg wide kernels on
    the delta climb's chunks, each timed beside its plain version, its
@@ -189,9 +182,9 @@ order; any failure exits non-zero:
    polish, refine, GP ascent, BO) equal to its float64 re-score to 1e-5,
    the climb's also to the host's kernel-free re-score to 1e-9, the
    ground truth's BIC beside them; the GP the exact one; the climbs count
-   through the family entry and never the seg entry; both narrow family
-   kernels timed at the binary climbs' shapes (an accept batch's 8-child
-   refresh, a full chunk).  (b) hepar2 with
+   through the family entry and never the seg entry; the family entry
+   timed at the binary climbs' shapes (an accept batch's 8-child refresh,
+   a full chunk).  (b) hepar2 with
    four-state variables (q_cap 4,096, S = 16,384 cells a row): a
    ``variant="structure"`` runner's search (the delta climbs with the
    registry's restarts; the latent half skipped), then both routes of all
@@ -203,10 +196,15 @@ order; any failure exits non-zero:
    runners is held against its plain version as it happens (counts bit for
    bit), on the route ``route()`` picks.
 
+Every bound is ``h100_bench/peaks.py``'s, the benchmark's yardstick: the
+card's published peaks at its published clock (``score_bound`` and
+``family_bound`` for the score and family entries, ``bound_of`` of the
+bytes and operations counted here for the others).
+
 The last stdout line is ``{"ok": true, "device": {...}}``; the line before
 it holds the kernels' JSON record (the decode attention's, from phases 4
-and 14; four entries, each with its narrow and its wide route, and the
-family entry's one-warp kernel, kept for timing on no path), a ``route_sweep:`` line phase 2b, a ``train:`` line phases 5-8, a ``search_stage:``
+and 14; four entries, each with its narrow and its wide route), a
+``route_sweep:`` line phase 2b, a ``train:`` line phases 5-8, a ``search_stage:``
 line phase 9, a ``pipeline:`` line phase 10, and ``wide_rows:``,
 ``native_codec:`` and ``data_parallel:`` lines phases 11-13, a ``tier`` line
 phase 14, a ``small_tier`` line phase 15 and a ``large_tier`` line phase
@@ -332,8 +330,7 @@ LARGE_STATES = 4
 LARGE_POPULATION = 256
 KERNELS = ("node_scores_fused", "node_scores_fused_wide", "contingency_counts_fused",
            "contingency_counts_fused_wide", "contingency_counts", "contingency_counts_wide",
-           "contingency_counts_family", "contingency_counts_family_wide",
-           "contingency_counts_family_warp")
+           "contingency_counts_family", "contingency_counts_family_wide")
 #: the score entry against its plain version: float32 sums of the same
 #: terms in another order, within 1e-5 relative or 1e-3 absolute
 SCORE_RTOL, SCORE_ATOL = 1e-5, 1e-3
@@ -352,9 +349,6 @@ LATENT_STEPS = ("island_cem", "latent_refined", "gp_ascent", "bo", "budget_gp_as
 #: candidates a call of the score entry's plain version when phase 4 and
 #: phase 9 hold their launches (rows of 512 bins), and phase 11 (65,536)
 ALARM_HOLD_CANDIDATES, WIDE_HOLD_CANDIDATES = 512, 64
-#: steps of the barley dense climbs that time the parent's path against
-#: the score entry, in turns
-WIDE_COMPARE_STEPS = 5
 #: the route sweep (phase 2b): bins per row as (q_cap, r_max), the unique
 #: rows with the variables of the dataset they stand for (sachs, hepar2),
 #: repeats of each route's timing, calls a timing
@@ -368,18 +362,6 @@ SWEEP_REPEATS, SWEEP_CALLS = 6, 50
 SWEEP_MARGIN = 0.05
 #: candidates of the fused entry's sweep input, families of the others'
 SWEEP_CANDIDATES, SWEEP_FAMILIES = 256, 4096
-#: the family narrow kernel against the one-warp-a-family kernel: the order
-#: of the device-only timings on one chunk, the calls in each, and the
-#: lane-private spans it is also forced to
-FAMILY_TURNS = ("warp", "cluster", "cluster", "warp")
-FAMILY_DEVICE_CALLS = 50
-FAMILY_SPANS = (0, 32, 64)
-#: Published H100 SXM peak HBM bytes/s.
-H100_BYTES_PER_S = 3.35e12
-#: INT32 lanes of one H100 SXM per clock: 132 SMs x 64.
-H100_INT32_LANES = 132 * 64
-#: Published H100 SXM peak float32 operations/s outside the tensor cores.
-H100_FP32_PER_S = 67e12
 SOURCE = "dags_vae_search_tpu_torch/csrc/contingency_counts.cu"
 REPLACES = "dags_vae_search_tpu/ops/bic_pallas.py:46"
 
@@ -432,77 +414,70 @@ def device_ms(fn, reps: int, warmup: int = 1, sleep_cycles: int = 20_000_000) ->
     raise RuntimeError("chip_smoke check failed: the host never fell behind the sleeping card")
 
 
-def bound_of(nbytes: float, ops: float, clock_hz: float, flops: float = 0.0) -> dict:
-    """The least time of a function that moves ``nbytes`` and does ``ops``
-    INT32 and ``flops`` float32 operations on the card: the larger of the
-    times."""
-    bytes_ms = nbytes / H100_BYTES_PER_S * 1e3
-    ops_ms = max(ops / (H100_INT32_LANES * clock_hz), flops / H100_FP32_PER_S) * 1e3
-    out = {"bytes": nbytes, "int_ops": ops, "bound_ms": max(bytes_ms, ops_ms),
-           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
-    if flops:
-        out["float_ops"] = flops
+def in_ms(bound: dict) -> dict:
+    """A bound of ``h100_bench/peaks.py`` (the benchmark's yardstick: the
+    card's published peaks at its published clock) with its time in ms."""
+    out = dict(bound)
+    out["bound_ms"] = out.pop("bound_s") * 1e3
     return out
 
 
-def fused_bound(strides_t, codes_cm, w, adj, S: int, clock_hz: float) -> dict:
+def code_bytes(codes_cm) -> int:
+    return codes_cm.numel() * codes_cm.element_size()
+
+
+def fused_entry_bound(strides_t, codes_cm, w, S: int) -> dict:
     """The fused entry's bound: strides, codes and weights read once, counts
     written once; per row and unique row its parents' multiply-adds, the
     child and the bin."""
+    from h100_bench import peaks
+
     R, U = strides_t.shape[0] * strides_t.shape[1], w.shape[0]
-    nbytes = strides_t.numel() * 4 + codes_cm.numel() * codes_cm.element_size() + U * 4 + R * S * 4
-    return bound_of(nbytes, U * (float((adj > 0).sum()) + 2 * R), clock_hz)
+    nbytes = strides_t.numel() * 4 + code_bytes(codes_cm) + U * 4 + R * S * 4
+    return in_ms(peaks.bound_of(nbytes, U * (float((strides_t > 0).sum()) + 2 * R)))
 
 
-def score_bound(strides_t, codes_cm, w, adj, nonzero_cells: int, clock_hz: float) -> dict:
-    """The score entry's bound: strides, codes, weights, q and cards read
-    once, one float a row written; the fused entry's integer work (per row
-    and unique row its parents' multiply-adds, the child and the bin) and 4
-    float32 operations a cell that holds a count (a divide, a log, a
-    multiply and an add; BDeu two lgamma and two adds)."""
-    b, n = strides_t.shape[:2]
-    R, U = b * n, w.shape[0]
-    nbytes = strides_t.numel() * 4 + codes_cm.numel() * codes_cm.element_size() + U * 4 \
-        + R * 4 + n * 4 + R * 4
-    return bound_of(nbytes, U * (float((adj > 0).sum()) + 2 * R), clock_hz,
-                    4.0 * nonzero_cells)
-
-
-def seg_bound(F: int, U: int, S: int, clock_hz: float) -> dict:
+def seg_entry_bound(F: int, U: int, S: int) -> dict:
     """The seg entry's bound: F x U cells and U weights read, F x S counts
     written; one bin add per cell."""
-    return bound_of(F * U * 4 + U * 4 + F * S * 4, F * U, clock_hz)
+    from h100_bench import peaks
+
+    return in_ms(peaks.bound_of(F * U * 4 + U * 4 + F * S * 4, F * U))
 
 
-def family_bound(parents, codes_cm, U: int, S: int, clock_hz: float) -> dict:
-    """The family entry's bound: the families (child and P slots, int32),
-    the cards, the codes and the weights read once, F x S counts written;
-    per family and unique row its filled slots' multiply-adds, the child and
-    the bin."""
+def score_entry_bound(strides_t, codes_cm, w) -> dict:
+    """The score entry's bound on one call's inputs: ``peaks.score_bound``."""
+    from h100_bench import peaks
+
+    b, n = strides_t.shape[:2]
+    return in_ms(peaks.score_bound(b * n, n, w.shape[0], code_bytes(codes_cm),
+                                   int((strides_t > 0).sum())))
+
+
+def family_entry_bound(parents, codes_cm, U: int, S: int) -> dict:
+    """The family entry's bound on one call's inputs: ``peaks.family_bound``."""
+    from h100_bench import peaks
+
     F, P = parents.shape
-    n = codes_cm.shape[0]
-    nbytes = F * (P + 1) * 4 + n * 4 + codes_cm.numel() * codes_cm.element_size() + U * 4 \
-        + F * S * 4
-    return bound_of(nbytes, U * (float((parents >= 0).sum()) + 2 * F), clock_hz)
+    return in_ms(peaks.family_bound(F, P, codes_cm.shape[0], U, code_bytes(codes_cm), S,
+                                    int((parents >= 0).sum())))
 
 
-def nvidia_smi(query: str, fmt: str = "csv,noheader") -> str:
+def nvidia_smi(query: str) -> str:
     smi = subprocess.run(
-        ["nvidia-smi", f"--query-gpu={query}", f"--format={fmt}"],
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60,
     )
     check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr.strip()}")
     return smi.stdout.strip().splitlines()[0]
 
 
-def phase_device(torch) -> tuple:
-    """The card's name, and its largest SM clock in Hz (for the integer bound)."""
+def phase_device(torch) -> str:
+    """The card's name."""
     name = torch.cuda.get_device_name(0)
     print(f"device: {name}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     print(nvidia_smi("name,power.limit"))
-    clock_hz = float(nvidia_smi("clocks.max.sm", "csv,noheader,nounits")) * 1e6
-    print(f"max SM clock {clock_hz / 1e6:.0f} MHz")
-    return name, clock_hz
+    return name
 
 
 def describe_rows(torch, adj, label: str) -> None:
@@ -517,10 +492,10 @@ def describe_rows(torch, adj, label: str) -> None:
           f"rows on lane-private bins {private:.3f}")
 
 
-def time_entries(torch, scorer, adj, label: str, clock_hz: float) -> dict:
+def time_entries(torch, scorer, adj, label: str) -> dict:
     """Check both entries on the candidates ``adj`` (bit-equal to their plain
-    versions and to each other) and time them, their plain versions, the
-    yardstick and the unfused path; bounds from these inputs."""
+    versions and to each other) and time them, their plain versions and the
+    ``torch.bincount`` yardstick; bounds from these inputs."""
     from dags_vae_search_tpu_torch.ops import bic_kernel, bic_torch
 
     pop, n, _ = adj.shape
@@ -532,10 +507,6 @@ def time_entries(torch, scorer, adj, label: str, clock_hz: float) -> dict:
     strides_t = strides.transpose(1, 2).contiguous()
     codes_cm = scorer._codes_cm
     describe_rows(torch, adj, label)
-
-    def unfused():
-        seg = bic_torch.cell_index(scorer._codes_u, strides, q_cap, r_max)
-        return bic_kernel.contingency_counts_kernel(w, seg.reshape(R, U), S)
 
     def fused():
         return bic_kernel.contingency_counts_fused(strides_t, codes_cm, w, q_cap, r_max)
@@ -563,7 +534,6 @@ def time_entries(torch, scorer, adj, label: str, clock_hz: float) -> dict:
     t = {
         "fused_ms": cuda_ms(fused, reps=20),
         "seg_ms": cuda_ms(lambda: bic_kernel.contingency_counts_kernel(w, seg, S), reps=20),
-        "before_ms": cuda_ms(unfused, reps=10),
         "fused_plain_ms": cuda_ms(
             lambda: bic_kernel.contingency_counts_fused_plain(strides_t, codes_cm, w, q_cap, r_max),
             reps=3, warmup=1),
@@ -579,14 +549,14 @@ def time_entries(torch, scorer, adj, label: str, clock_hz: float) -> dict:
         "err_fused": err_fused,
     }
     del flat, w_rep, seg
-    for key, bound in (("fused", fused_bound(strides_t, codes_cm, w, adj, S, clock_hz)),
-                       ("seg", seg_bound(R, U, S, clock_hz))):
+    for key, bound in (("fused", fused_entry_bound(strides_t, codes_cm, w, S)),
+                       ("seg", seg_entry_bound(R, U, S))):
         t.update({f"{key}_{k}": v for k, v in bound.items()})
     print(f"{label}: " + json.dumps(t))
     return t
 
 
-def phase_kernels(torch, cfg, scorer, clock_hz) -> dict:
+def phase_kernels(torch, cfg, scorer) -> dict:
     from dags_vae_search_tpu_torch import native
     from dags_vae_search_tpu_torch.graphs import sampler
     from dags_vae_search_tpu_torch.ops import _build
@@ -612,8 +582,7 @@ def phase_kernels(torch, cfg, scorer, clock_hz) -> dict:
     for line in _build.build_logs.get("contingency_counts", "").splitlines():
         if "entry function" in line or "registers" in line or "smem" in line or "spill" in line:
             print("  ptxas:", line.strip())
-    return time_entries(torch, scorer, torch.as_tensor(adj_np, device="cuda"), "ER candidates",
-                        clock_hz)
+    return time_entries(torch, scorer, torch.as_tensor(adj_np, device="cuda"), "ER candidates")
 
 
 def sweep_inputs(torch, S: int, U: int, n: int) -> dict:
@@ -826,8 +795,7 @@ def _counters() -> dict:
             "contingency_counts": bic_kernel.contingency_counts_kernel,
             "contingency_counts_wide": bic_kernel.contingency_counts_wide,
             "contingency_counts_family": bic_kernel.contingency_counts_family,
-            "contingency_counts_family_wide": bic_kernel.contingency_counts_family_wide,
-            "contingency_counts_family_warp": bic_kernel.contingency_counts_family_warp}
+            "contingency_counts_family_wide": bic_kernel.contingency_counts_family_wide}
 
 
 def reset_launches() -> None:
@@ -859,8 +827,7 @@ def check_decodes(launches: dict, model, label: str, decodes: int | None = None)
               f"{decodes if decodes is not None else 'whole'} decodes of {per}")
 
 
-def hold_decode(torch, model, rows: int, label: str, clock_hz: float,
-                max_in_degree: int | None = None) -> dict:
+def hold_decode(torch, model, rows: int, label: str, max_in_degree: int | None = None) -> dict:
     """One sampling decode of ``rows`` seeded latents with every launch of
     the decode-attention kernel held against its plain version on the same
     inputs (the decode's own cache views and masks): the largest difference
@@ -874,6 +841,7 @@ def hold_decode(torch, model, rows: int, label: str, clock_hz: float,
     from dags_vae_search_tpu_torch.models import transformer
     from dags_vae_search_tpu_torch.models.decode import decode_to_labeled
     from dags_vae_search_tpu_torch.ops import decode_attention as da
+    from h100_bench import peaks
 
     check(model.matmul_dtype is None, f"{label}: the held decode is float32's")
     kernel = transformer.decode_attention
@@ -919,9 +887,9 @@ def hold_decode(torch, model, rows: int, label: str, clock_hz: float,
     check(calls == decode_calls(model) == sum(r["calls"] for r in layouts.values()),
           f"{label}: {calls} decode-attention launches, want {decode_calls(model)}")
     for rec in layouts.values():
-        rec.update(bound_of(rec["bytes"], 0.0, clock_hz))
+        rec.update(in_ms(peaks.bound_of(rec["bytes"], 0.0)))
         rec["admitted_share"] = rec.pop("admitted_keys") / rec.pop("keys")
-    total = bound_of(sum(r["bytes"] for r in layouts.values()), 0.0, clock_hz)
+    total = in_ms(peaks.bound_of(sum(r["bytes"] for r in layouts.values()), 0.0))
     out = {"rows": rows, "heads": model.decoder.layer0.self_attn.num_heads,
            "d_head": model.d_model // model.decoder.layer0.self_attn.num_heads,
            "positions": model.max_n - 1, "calls": calls, "max_rel_err": worst["rel_err"],
@@ -961,7 +929,7 @@ def check_best_exact(torch, scorer, result, n: int) -> float:
     return check_exact(scorer, result.best_score, best_cols[0].cpu().numpy())
 
 
-def phase_search(torch, cfg, scorer, clock_hz) -> tuple:
+def phase_search(torch, cfg, scorer) -> tuple:
     from dags_vae_search_tpu_torch.models.decode import decode_to_labeled
     from dags_vae_search_tpu_torch.models.pace_vae import make_model, num_parameters
     from dags_vae_search_tpu_torch.search.latent import _relabel_and_check, cem_search
@@ -1032,11 +1000,11 @@ def phase_search(torch, cfg, scorer, clock_hz) -> tuple:
     score_ms = (time.perf_counter() - t0) * 1e3
     valid_frac = float((valid & is_perm).float().mean())
     finite_frac = float(torch.isfinite(scores).float().mean())
-    decoded = time_entries(torch, scorer, relabeled, "decoded candidates", clock_hz)
+    decoded = time_entries(torch, scorer, relabeled, "decoded candidates")
     decoded["score_entry"] = time_score_entry(torch, scorer, relabeled, "decoded candidates",
-                                              clock_hz, chunk=ALARM_HOLD_CANDIDATES)
+                                              chunk=ALARM_HOLD_CANDIDATES)
     decoded["decode_attention"] = hold_decode(torch, model, DECODE_HOLD_ROWS,
-                                              "alarm island decode", clock_hz,
+                                              "alarm island decode",
                                               max_in_degree=scorer.max_parents)
     search = {
         "params": params,
@@ -1339,58 +1307,7 @@ def ptxas_report(source: str = "contingency_counts") -> dict:
     return out
 
 
-def family_kernel_resources() -> dict:
-    """:func:`ptxas_report` for the family narrow kernel (both code types)
-    and the one-warp-a-family kernel."""
-    report = ptxas_report()
-    return {
-        "cluster": {k: v for k, v in report.items() if "family_cluster_kernel" in k},
-        "warp": {k: v for k, v in report.items()
-                 if "rows_kernel" in k and "FamilyRows" in k and "wide" not in k},
-    }
-
-
-def time_family_designs(torch, args, label: str) -> dict:
-    """The family entry's narrow kernel (a cluster of
-    ``family_cluster_size``'s blocks a family) against the one-warp-a-family
-    kernel on one chunk's arguments: each forced cluster size and lane-private
-    span first held bit-equal to the plain version (tolerance 0), then device
-    time alone (:func:`device_ms`, ``FAMILY_DEVICE_CALLS`` calls each): the
-    two designs in the turns ``FAMILY_TURNS``, the cluster kernel at each
-    cluster size and each span of ``FAMILY_SPANS``, and the launch floor (an
-    empty kernel through the same clock)."""
-    from dags_vae_search_tpu_torch.ops import bic_kernel
-
-    want = bic_kernel.contingency_counts_family_plain(*args)
-    runs = {"warp": lambda: bic_kernel._launch_family_warp(*args),
-            "cluster": lambda: bic_kernel._launch_family(*args)}
-    for c in bic_kernel.FAMILY_CLUSTER_SIZES:
-        runs[f"c{c}"] = lambda c=c: bic_kernel._launch_family(*args, cluster=c)
-    for span in FAMILY_SPANS:
-        runs[f"span{span}"] = lambda span=span: bic_kernel._launch_family(*args, private_span=span)
-    for name, run in runs.items():
-        check(torch.equal(run(), want), f"{label}: family {name} kernel differs from the plain "
-                                        f"version")
-    turns: dict = {"warp": [], "cluster": []}
-    for name in FAMILY_TURNS:
-        turns[name].append(device_ms(runs[name], reps=FAMILY_DEVICE_CALLS))
-    _, parents, codes_cm, _, _, q_cap, r_max = args
-    S = q_cap * r_max
-    return {
-        "cluster": picked_cluster(args),
-        "blocks_per_sm": bic_kernel._family_occupancy(
-            parents.device.index, codes_cm.element_size(), S, parents.shape[1],
-            min(bic_kernel.FAMILY_PRIVATE_SPAN, S))[0],
-        "warp_device_ms": turns["warp"], "cluster_device_ms": turns["cluster"],
-        "forced_cluster_device_ms": {c: device_ms(runs[f"c{c}"], reps=FAMILY_DEVICE_CALLS)
-                                     for c in bic_kernel.FAMILY_CLUSTER_SIZES},
-        "private_span_device_ms": {span: device_ms(runs[f"span{span}"], reps=FAMILY_DEVICE_CALLS)
-                                   for span in FAMILY_SPANS},
-        "floor_ms": device_ms(lambda: bic_kernel.launch_floor("cuda"), reps=FAMILY_DEVICE_CALLS),
-    }
-
-
-def time_family_seg(torch, fam, final_adj: np.ndarray, clock_hz, max_rows=None,
+def time_family_seg(torch, fam, final_adj: np.ndarray, max_rows=None,
                     refresh_children=None) -> dict:
     """The family entry (what the delta climb calls) and the seg entry at
     the climb's shapes, each built by the climb's own ``refresh_families``:
@@ -1401,13 +1318,13 @@ def time_family_seg(torch, fam, final_adj: np.ndarray, clock_hz, max_rows=None,
     is given, the refresh of that many children of the final graph (an
     accept batch's).  ``max_rows`` keeps the first rows of each (the climb's
     own chunks at large n).  Each route of both entries (the narrow one
-    where it fits a block, and the one-warp-a-family kernel) held bit-equal
-    to the plain version (tolerance 0) and timed, beside the family entry's
-    plain version, the path it replaced (``fam.cells`` then the seg entry),
-    the cells alone, the ``torch.bincount`` yardstick on the cells, and both
-    entries' bounds from this input; the two narrow family designs also on
-    the device alone (:func:`time_family_designs`).  The family kernels get
-    the scorer's int32 multiplicities, as the climb sends them."""
+    where it fits a block) held bit-equal to the plain version (tolerance 0)
+    and timed, the family narrow kernel held also at every cluster size and
+    lane-private spans 0, 16 and 64, the family entry's route also on the device alone
+    (:func:`device_ms`), beside the family entry's plain version, the
+    ``torch.bincount`` yardstick on the cells, and both entries' bounds from
+    this input.  The family kernels get the scorer's int32 multiplicities,
+    as the climb sends them."""
     from dags_vae_search_tpu_torch.ops import bic_kernel
     from dags_vae_search_tpu_torch.search.delta_hillclimb import refresh_families
 
@@ -1440,12 +1357,14 @@ def time_family_seg(torch, fam, final_adj: np.ndarray, clock_hz, max_rows=None,
               f"family {key} chunk: the family entry's plain version differs from the seg path")
         runs = {"family_wide": lambda: bic_kernel._launch_family(*args, wide=True),
                 "seg_wide": lambda: bic_kernel._launch(w, seg, S, wide=True)}
-        narrow_fits = bic_kernel.family_block_bytes(S, P) <= bic_kernel.MAX_SHARED_BYTES
-        warp_fits = bic_kernel.family_warp_bytes(S, P) <= bic_kernel.MAX_SHARED_BYTES
-        if narrow_fits:
+        if bic_kernel.family_block_bytes(S, P) <= bic_kernel.MAX_SHARED_BYTES:
             runs["family_narrow"] = lambda: bic_kernel._launch_family(*args)
-        if warp_fits:
-            runs["family_warp"] = lambda: bic_kernel._launch_family_warp(*args)
+            for c in bic_kernel.FAMILY_CLUSTER_SIZES:
+                for span in (0, 16, 64):
+                    check(torch.equal(bic_kernel._launch_family(*args, cluster=c, private_span=span),
+                                      want), f"family {key} chunk: the narrow kernel at cluster "
+                                             f"{c}, lane-private span {span} differs from the "
+                                             f"plain version")
         if bic_kernel.seg_warp_bytes(S) <= bic_kernel.MAX_SHARED_BYTES:
             runs["seg_narrow"] = lambda: bic_kernel._launch(w, seg, S)
         rec = {"F": F, "U": U, "S": S, "P": P,
@@ -1464,6 +1383,9 @@ def time_family_seg(torch, fam, final_adj: np.ndarray, clock_hz, max_rows=None,
         rec.update({
             "err": err,
             "ms": rec[f"family_{rec['family_route']}_ms"],
+            # the entry's route on the device alone: a small call is shorter
+            # than the host's dispatch of it
+            "device_ms": device_ms(runs[f"family_{rec['family_route']}"], reps=SWEEP_CALLS),
             "seg_ms": rec[f"seg_{rec['seg_route']}_ms"],
             "family_plain_ms": cuda_ms(lambda: bic_kernel.contingency_counts_family_plain(*args),
                                        reps=3, warmup=1),
@@ -1471,25 +1393,13 @@ def time_family_seg(torch, fam, final_adj: np.ndarray, clock_hz, max_rows=None,
                                     reps=3, warmup=1),
             "bincount_ms": cuda_ms(lambda: torch.bincount(flat, weights=w_rep, minlength=F * S),
                                    reps=3, warmup=1),
-            "cells_ms": cuda_ms(lambda: fam.cells(children, parents), reps=5),
-            "cells_seg_ms": cuda_ms(lambda: bic_kernel.contingency_counts_kernel(
-                w, fam.cells(children, parents)[0], S), reps=5),
-            **family_bound(args[1], fam._codes_cm, U, S, clock_hz),
-            "seg_bound": seg_bound(F, U, S, clock_hz),
+            "cluster": picked_cluster(args),
+            **family_entry_bound(args[1], fam._codes_cm, U, S),
+            "seg_bound": seg_entry_bound(F, U, S),
         })
-        if narrow_fits and warp_fits:
-            designs = time_family_designs(torch, args, f"family {key} chunk")
-            designs["limit"] = "floor" if designs["floor_ms"] > rec["bound_ms"] else "bound"
-            rec["designs"] = designs
         t[key] = rec
         del flat, w_rep, seg, want
     print("family and seg entries at the delta climb's shapes: " + json.dumps(t))
-    for key, rec in t.items():
-        d = rec.get("designs")
-        if d:
-            print(f"  family narrow {key} (F={rec['F']}, c={d['cluster']}): device ms warp "
-                  f"{d['warp_device_ms']}, cluster {d['cluster_device_ms']}, bound "
-                  f"{rec['bound_ms']:.5f}, floor {d['floor_ms']:.5f} ({d['limit']})")
     return t
 
 
@@ -1530,25 +1440,6 @@ def scores_err(torch, got, want, label: str) -> float:
     return err
 
 
-@contextlib.contextmanager
-def parent_path(scorer):
-    """Inside the block ``scorer`` scores as it did before the score entry:
-    the fused entry's counts written to device memory, then reduced by
-    ``bic_torch.node_scores_from_counts``."""
-    from dags_vae_search_tpu_torch.ops import bic_torch
-
-    def node_scores(adj):
-        counts, q = scorer.counts(adj)
-        return bic_torch.node_scores_from_counts(counts, q, scorer._cards,
-                                                 scorer.dataset.num_cases, scorer.metric), q
-
-    scorer._node_scores = node_scores
-    try:
-        yield
-    finally:
-        del scorer._node_scores
-
-
 def added_peak_gib(torch, fn) -> float:
     """Device memory ``fn()`` takes at its peak above what was allocated
     before it, in GiB."""
@@ -1560,14 +1451,12 @@ def added_peak_gib(torch, fn) -> float:
     return (torch.cuda.max_memory_allocated() - base) / 2**30
 
 
-def time_score_entry(torch, scorer, adj, label: str, clock_hz: float, chunk=None) -> dict:
+def time_score_entry(torch, scorer, adj, label: str, chunk=None) -> dict:
     """The score entry on one input of a main path: within tolerance of its
     plain version (``chunk`` candidates a plain call), two launches
-    bit-equal, its kernel timed alone.  Then, in turns (parent, change,
-    change, parent), the parent's path (the fused entry's counts reduced in
-    torch) against the entry, and the scorer's whole score step on each
-    path, with peak memory; the plain version's time; the bound from this
-    input."""
+    bit-equal, its kernel timed alone and the entry timed with the strides
+    it computes first, its added peak memory, the plain version's time and
+    the bound from this input."""
     from dags_vae_search_tpu_torch.ops import bic_kernel
 
     args = (adj, scorer._codes_u, scorer._weights, scorer._cards, scorer.q_cap, scorer.r_max,
@@ -1580,10 +1469,6 @@ def time_score_entry(torch, scorer, adj, label: str, clock_hz: float, chunk=None
 
     def entry():
         return bic_kernel.node_scores_fused(*args, **kwargs)[0]
-
-    def parent():
-        with parent_path(scorer):
-            return scorer._node_scores(adj)[0]
 
     got = entry()
     again = entry()
@@ -1600,70 +1485,12 @@ def time_score_entry(torch, scorer, adj, label: str, clock_hz: float, chunk=None
 
     check(torch.equal(launch(), got), f"{label}: the kernel differs from the entry")
     # the kernel alone, without the strides the entry computes first
-    out["kernel_ms"] = cuda_ms(launch, reps=10)
-    turns = {"parent": [], "change": []}
-    steps = {"parent": [], "change": []}
-    for path in ("parent", "change", "change", "parent"):
-        turns[path].append(cuda_ms(parent if path == "parent" else entry, reps=10))
-        with parent_path(scorer) if path == "parent" else contextlib.nullcontext():
-            steps[path].append(cuda_ms(lambda: scorer.score(adj), reps=10))
-    with parent_path(scorer):
-        step_peak_parent = added_peak_gib(torch, lambda: scorer.score(adj))
-    out.update(entry_ms=turns["change"][0], parent_ms=turns["parent"], change_ms=turns["change"],
-               step_parent_ms=steps["parent"], step_change_ms=steps["change"],
-               peak_parent_gib=added_peak_gib(torch, parent),
-               peak_change_gib=added_peak_gib(torch, entry),
-               step_peak_parent_gib=step_peak_parent,
-               step_peak_change_gib=added_peak_gib(torch, lambda: scorer.score(adj)))
-    out["plain_ms"] = cuda_ms(lambda: score_plain(torch, args, kwargs, chunk), reps=2, warmup=1)
-    counts, _ = bic_kernel.contingency_counts(adj, scorer._codes_u, scorer._weights,
-                                              scorer._cards, scorer.q_cap, scorer.r_max,
-                                              codes_cm=scorer._codes_cm)
-    nonzero = int((counts > 0).sum())
-    del counts
-    out.update(nonzero_cells=nonzero, **score_bound(strides_t, scorer._codes_cm, scorer._weights,
-                                                    adj, nonzero, clock_hz))
+    out.update(kernel_ms=cuda_ms(launch, reps=10), entry_ms=cuda_ms(entry, reps=10),
+               peak_gib=added_peak_gib(torch, entry),
+               plain_ms=cuda_ms(lambda: score_plain(torch, args, kwargs, chunk), reps=2, warmup=1),
+               **score_entry_bound(strides_t, codes_cm, scorer._weights))
     print(f"{label}: score kernel vs plain max |diff| {out['err']:.3g} (rtol {SCORE_RTOL}, atol "
           f"{SCORE_ATOL}), two launches bit-equal; " + json.dumps(out))
-    return out
-
-
-def compare_climbs(torch, scorer, climb, label: str) -> dict:
-    """``climb()``, a dense climb through ``scorer``, on the parent's path
-    and on the score entry in turns (parent, change, change, parent): wall
-    seconds, peak memory, best, steps and evals of each run.  Two runs of
-    one path must agree; the two paths' bests and steps are printed side by
-    side, since a float32 score-equivalent tie can part them."""
-    runs = []
-    for path in ("parent", "change", "change", "parent"):
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        with parent_path(scorer) if path == "parent" else contextlib.nullcontext():
-            t0 = time.perf_counter()
-            res = climb()
-            torch.cuda.synchronize()
-            seconds = time.perf_counter() - t0
-        runs.append({"path": path, "seconds": seconds,
-                     "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
-                     "best_bic": res.best_score, "iterations": res.iterations,
-                     "evals": res.num_evals, "edges": int(np.asarray(res.best_adj).sum()),
-                     "adj": np.asarray(res.best_adj)})
-    by_path = {p: [r for r in runs if r["path"] == p] for p in ("parent", "change")}
-    for path, (a, b) in by_path.items():
-        check(a["best_bic"] == b["best_bic"] and a["iterations"] == b["iterations"]
-              and np.array_equal(a["adj"], b["adj"]), f"{label}: two {path} runs differ")
-    parent, change = by_path["parent"][0], by_path["change"][0]
-    same = bool(np.array_equal(parent["adj"], change["adj"])
-                and parent["iterations"] == change["iterations"])
-    for r in runs:
-        del r["adj"]
-    out = {"runs": runs, "same_graph_and_steps": same,
-           "parent_s": [r["seconds"] for r in by_path["parent"]],
-           "change_s": [r["seconds"] for r in by_path["change"]]}
-    print(f"{label}, parent's path vs score entry in turns: {out['parent_s']} s vs "
-          f"{out['change_s']} s; bests {parent['best_bic']:.4f} / {change['best_bic']:.4f}, steps "
-          f"{parent['iterations']} / {change['iterations']}"
-          + ("" if same else "; the paths parted (scripts/trace_climb_parting.py finds the step)"))
     return out
 
 
@@ -1679,7 +1506,7 @@ def check_fused(torch, got, args, label: str, chunk=None) -> float:
     return err
 
 
-def hold_fused(torch, scorer, adj, label: str, clock_hz: float, chunk=None) -> dict:
+def hold_fused(torch, scorer, adj, label: str, chunk=None) -> dict:
     """The fused entry on one input that a search-stage path sends it:
     bit-equal to its plain version (tolerance 0, run ``chunk`` candidates a
     call), timed beside it, with its bound from this input."""
@@ -1692,7 +1519,7 @@ def hold_fused(torch, scorer, adj, label: str, clock_hz: float, chunk=None) -> d
     out = {"rows": adj.shape[0] * adj.shape[1], "err": check_fused(torch, got, args, label, chunk),
            "ms": cuda_ms(lambda: bic_kernel.contingency_counts_fused(*args), reps=10),
            "plain_ms": cuda_ms(lambda: fused_plain_parts(args, chunk), reps=2, warmup=1),
-           **fused_bound(args[0], args[1], args[2], adj, scorer.q_cap * scorer.r_max, clock_hz)}
+           **fused_entry_bound(*args[:3], scorer.q_cap * scorer.r_max)}
     del got
     S = scorer.q_cap * scorer.r_max
     if bic_kernel.route("fused", S, bic_kernel.fused_warp_bytes(S, adj.shape[-1])) == "narrow":
@@ -1702,7 +1529,7 @@ def hold_fused(torch, scorer, adj, label: str, clock_hz: float, chunk=None) -> d
     return out
 
 
-def phase_search_stage(torch, cfg, scorer, dataset, model, test_c, clock_hz) -> dict:
+def phase_search_stage(torch, cfg, scorer, dataset, model, test_c) -> dict:
     """Phase 9: the search stage (the JAX package's ``runner.py`` stage_search)
     at alarm width with the trained model.  Every step runs alone: launches
     reset before it and read after it, before its best is re-scored.  Then
@@ -1904,27 +1731,20 @@ def phase_search_stage(torch, cfg, scorer, dataset, model, test_c, clock_hz) -> 
         if name in LATENT_STEPS:
             check_decodes(launches, model, name)
 
-    # the dense climb with restarts on the parent's path and on the score
-    # entry, in turns (no check inside: the step above held every launch)
-    climb_compare = compare_climbs(torch, scorer, lambda: hillclimb.climb_with_restarts(
-        climb, np.random.default_rng(seed + 11), restarts=s.hill_climb_restarts,
-        max_parents=s.max_parents, tie_stop=s.hill_climb_tie_stop), "alarm dense climb")
-
     # the fused and the score entry at the inputs these paths send them: a
     # dense-climb chunk (the first window of 4,096 moves, hill_climb's
     # default, from the climb's best graph) and the island CEM's first
     # population of 8 x 512
     moves = hillclimb._move_candidates(torch.as_tensor(hc.best_adj, device="cuda"))
     fused_stage = {
-        "climb_chunk": hold_fused(torch, scorer, moves[:4096], "dense climb chunk", clock_hz),
-        "island_population": hold_fused(torch, scorer, island_pop[0], "island CEM population",
-                                        clock_hz),
+        "climb_chunk": hold_fused(torch, scorer, moves[:4096], "dense climb chunk"),
+        "island_population": hold_fused(torch, scorer, island_pop[0], "island CEM population"),
     }
     score_stage = {
         "climb_chunk": time_score_entry(torch, scorer, moves[:4096], "dense climb chunk",
-                                        clock_hz, chunk=ALARM_HOLD_CANDIDATES),
+                                        chunk=ALARM_HOLD_CANDIDATES),
         "island_population": time_score_entry(torch, scorer, island_pop[0],
-                                              "island CEM population", clock_hz,
+                                              "island CEM population",
                                               chunk=ALARM_HOLD_CANDIDATES),
     }
     del moves, island_pop
@@ -1932,11 +1752,10 @@ def phase_search_stage(torch, cfg, scorer, dataset, model, test_c, clock_hz) -> 
             "cuts": {"island_iters": [s.island_iters, ISLAND_ITERS],
                      "refine_iters": [s.refine_iters, REFINE_ITERS]},
             "fused_stage": fused_stage, "score_stage": score_stage,
-            "climb_compare": climb_compare,
-            "family_seg": time_family_seg(torch, fam, delta.best_adj, clock_hz)}
+            "family_seg": time_family_seg(torch, fam, delta.best_adj)}
 
 
-def phase_wide_rows(torch, alarm_scorer, clock_hz) -> dict:
+def phase_wide_rows(torch, alarm_scorer) -> dict:
     """Phase 11: rows of S = 65,536 bins at barley width through both
     entries' wide kernels; checks in the module docstring."""
     from dags_vae_search_tpu_torch.experiments.registry import REGISTRY
@@ -1999,22 +1818,16 @@ def phase_wide_rows(torch, alarm_scorer, clock_hz) -> dict:
                     evals_per_s=res.num_evals / info["seconds_without_checks"],
                     edges=int(np.asarray(res.best_adj).sum()))
         print(f"wide {name}: " + json.dumps(info))
-    # the dense climb's first steps on the parent's path and on the score
-    # entry, in turns (no check inside: the step above held every launch)
-    climb_compare = compare_climbs(torch, scorer, lambda: dense_climb(WIDE_COMPARE_STEPS),
-                                   f"barley dense climb, {WIDE_COMPARE_STEPS} steps")
-
     # the kernels at the inputs these paths send them
     moves = hillclimb._move_candidates(torch.as_tensor(dense.best_adj, device="cuda"))
-    fused = hold_fused(torch, scorer, moves[:WIDE_CLIMB_CHUNK], "wide dense climb chunk", clock_hz)
-    seg = time_family_seg(torch, fam, delta.best_adj, clock_hz)
+    fused = hold_fused(torch, scorer, moves[:WIDE_CLIMB_CHUNK], "wide dense climb chunk")
+    seg = time_family_seg(torch, fam, delta.best_adj)
     peak = max([torch.cuda.max_memory_allocated() / 2**30]
-               + [v["peak_mem_gib"] for v in steps.values()]
-               + [r["peak_mem_gib"] for r in climb_compare["runs"]])
+               + [v["peak_mem_gib"] for v in steps.values()])
     check(peak < WIDE_PEAK_GIB, f"phase 11 peak {peak:.2f} GiB")
     # (its own peaks, above what the phase holds)
     score = time_score_entry(torch, scorer, moves[:WIDE_CLIMB_CHUNK], "wide dense climb chunk",
-                             clock_hz, chunk=TIER_HOLD_CANDIDATES)
+                             chunk=TIER_HOLD_CANDIDATES)
     del moves
 
     # rows of 512 bins still take the narrow kernels
@@ -2031,7 +1844,7 @@ def phase_wide_rows(torch, alarm_scorer, clock_hz) -> dict:
            "cuts": {"dense_climb_steps": [s.hill_climb_iters, WIDE_CLIMB_STEPS],
                     "score_chunk": [4096, WIDE_CLIMB_CHUNK]},
            "steps": steps, "fused_climb_chunk": fused, "score_climb_chunk": score,
-           "climb_compare": climb_compare, "family_seg": seg, "peak_mem_gib": peak,
+           "family_seg": seg, "peak_mem_gib": peak,
            "narrow_check_launches": narrow}
     return out
 
@@ -2609,7 +2422,7 @@ def tier_train(torch, cfg, train_c, test_c, matmul_dtype, log_dir) -> tuple:
     return state, out
 
 
-def phase_tier(torch, cfg, clock_hz) -> dict:
+def phase_tier(torch, cfg) -> dict:
     """Phase 14: the registry's very-large tier end to end at its widths;
     checks in the module docstring."""
     from dags_vae_search_tpu_torch import native
@@ -2739,9 +2552,9 @@ def phase_tier(torch, cfg, clock_hz) -> dict:
                                                relabeled[best].cpu().numpy()))
         print("link decode_and_score: " + json.dumps(info))
         peak_of("decode_and_score")
-        out["decode_attention"] = hold_decode(torch, model, pop, "link decode", clock_hz,
+        out["decode_attention"] = hold_decode(torch, model, pop, "link decode",
                                               max_in_degree=s.max_parents)
-        fused_t = hold_fused(torch, scorer, relabeled, "decoded link population", clock_hz,
+        fused_t = hold_fused(torch, scorer, relabeled, "decoded link population",
                              chunk=TIER_HOLD_CANDIDATES)
         del scores, labels, adj, relabeled
         peak_of("fused_timing")
@@ -2780,7 +2593,7 @@ def phase_tier(torch, cfg, clock_hz) -> dict:
         print("link island CEM: " + json.dumps(info))
         peak_of("island_cem")
 
-        seg_t = time_family_seg(torch, fam, climb.best_adj, clock_hz, max_rows=DELTA_CHUNK)
+        seg_t = time_family_seg(torch, fam, climb.best_adj, max_rows=DELTA_CHUNK)
         peak_of("seg_timing")
     search_peak = max(peaks[k] for k in ("decode_and_score", "fused_timing", "delta_hill_climb",
                                          "island_cem", "seg_timing"))
@@ -3041,14 +2854,14 @@ def small_search(torch, runner, steps: dict, key: str) -> tuple:
         return json.load(fh), kept
 
 
-def time_fused_routes(torch, scorer, adj, label: str, clock_hz: float) -> dict:
+def time_fused_routes(torch, scorer, adj, label: str) -> dict:
     """The fused entry on one input of the tiers' paths (held and timed on
     the route ``route()`` picks by :func:`hold_fused`), and both of its
     kernels launched directly on the same input: counts equal, times side
     by side."""
     from dags_vae_search_tpu_torch.ops import bic_kernel, bic_torch
 
-    out = hold_fused(torch, scorer, adj, label, clock_hz, chunk=TIER_HOLD_CANDIDATES)
+    out = hold_fused(torch, scorer, adj, label, chunk=TIER_HOLD_CANDIDATES)
     strides, _ = bic_torch.parent_config_strides(adj, scorer._cards)
     args = (strides.transpose(1, 2).contiguous(), scorer._codes_cm, scorer._weights,
             scorer.q_cap, scorer.r_max)
@@ -3104,7 +2917,7 @@ def cut_fit(runner) -> None:
                                          if split == "train" else load(split))
 
 
-def phase_small_tier(torch, clock_hz) -> dict:
+def phase_small_tier(torch) -> dict:
     """Phase 15: the registry's small tier; checks in the module docstring."""
     from dags_vae_search_tpu_torch.experiments.runner import ExperimentRunner
     from dags_vae_search_tpu_torch.models.pace_vae import PaceVAE, num_parameters
@@ -3191,11 +3004,10 @@ def phase_small_tier(torch, clock_hz) -> dict:
         check(scores == 2 + 11 and counts == 3, f"sachs search: launches {launches}")
         sachs_inputs = sachs_fused_inputs(torch, scorer.dataset.num_variables)
         out["sachs"]["fused"] = {
-            key: time_fused_routes(torch, scorer, adj, f"sachs {key}", clock_hz)
+            key: time_fused_routes(torch, scorer, adj, f"sachs {key}")
             for key, adj in sachs_inputs.items()}
         out["sachs"]["score"] = {
-            key: time_score_entry(torch, scorer, adj, f"sachs {key}", clock_hz,
-                                  chunk=TIER_HOLD_CANDIDATES)
+            key: time_score_entry(torch, scorer, adj, f"sachs {key}", chunk=TIER_HOLD_CANDIDATES)
             for key, adj in sachs_inputs.items()}
         del sachs_inputs
 
@@ -3256,7 +3068,7 @@ def check_climbs(climbs: list, report: dict, label: str) -> dict:
             "profiles": [res.profile for res in climbs]}
 
 
-def phase_large_tier(torch, clock_hz) -> dict:
+def phase_large_tier(torch) -> dict:
     """Phase 16: the registry's large tier at hepar2; checks in the module
     docstring."""
     from dags_vae_search_tpu_torch.experiments.registry import REGISTRY
@@ -3400,8 +3212,7 @@ def phase_large_tier(torch, clock_hz) -> dict:
         # batch's refresh (8 children) and a full chunk
         fam = FamilyBatchScorer(runner.scoring_dataset(), max_parents=s.max_parents,
                                 q_cap=scorer.q_cap, device="cuda")
-        out["family_seg"] = time_family_seg(torch, fam, climbs[0].best_adj, clock_hz,
-                                            max_rows=DELTA_CHUNK,
+        out["family_seg"] = time_family_seg(torch, fam, climbs[0].best_adj, max_rows=DELTA_CHUNK,
                                             refresh_children=s.hill_climb_accept_batch)
         del fam
         print(f"hepar2: bests {json.dumps(bests)}, ground truth {search['ground_truth_bic']:.4f}, "
@@ -3439,24 +3250,21 @@ def phase_large_tier(torch, clock_hz) -> dict:
                     ground_truth_bic=search["ground_truth_bic"])
         fam = FamilyBatchScorer(runner.scoring_dataset(), max_parents=s.max_parents,
                                 q_cap=scorer.q_cap, device="cuda")
-        four["family_seg"] = time_family_seg(torch, fam, hc.best_adj, clock_hz,
-                                             max_rows=DELTA_CHUNK)
+        four["family_seg"] = time_family_seg(torch, fam, hc.best_adj, max_rows=DELTA_CHUNK)
         _, pop = sampler.sample_connected_dags(np.random.default_rng(SEED), LARGE_POPULATION, n,
                                                123, n, max_in_degree=s.max_parents)
         pop = torch.as_tensor(pop, device="cuda")
-        four["fused"] = time_fused_routes(torch, scorer, pop, "hepar2 four-state population",
-                                          clock_hz)
+        four["fused"] = time_fused_routes(torch, scorer, pop, "hepar2 four-state population")
         four["score"] = time_score_entry(torch, scorer, pop, "hepar2 four-state population",
-                                         clock_hz, chunk=TIER_HOLD_CANDIDATES)
+                                         chunk=TIER_HOLD_CANDIDATES)
         del pop
         out["four_states"] = four
         first, full = four["family_seg"]["first"], four["family_seg"]["full"]
         print(f"hepar2 four states (S = {S}, {nvidia_smi('name,power.limit')}): family entry "
               f"narrow / wide first frontier {first['family_narrow_ms']:.4f} / "
               f"{first['family_wide_ms']:.4f} ms, full chunk {full['family_narrow_ms']:.4f} / "
-              f"{full['family_wide_ms']:.4f} ms (bound {full['bound_ms']:.4f}; cells + seg "
-              f"{full['cells_seg_ms']:.4f} ms); seg narrow / wide full chunk "
-              f"{full['seg_narrow_ms']:.4f} / {full['seg_wide_ms']:.4f} ms (bound "
+              f"{full['family_wide_ms']:.4f} ms (bound {full['bound_ms']:.4f}); seg narrow / wide "
+              f"full chunk {full['seg_narrow_ms']:.4f} / {full['seg_wide_ms']:.4f} ms (bound "
               f"{full['seg_bound']['bound_ms']:.4f}); fused narrow / wide "
               f"{four['fused']['narrow_ms']:.4f} / {four['fused']['wide_ms']:.4f} ms (bound "
               f"{four['fused']['bound_ms']:.4f})")
@@ -3492,15 +3300,13 @@ def kernel_records(search: dict, er: dict, decoded: dict, stage: dict, wide: dic
     four = large["four_states"]
     chunks = [*family.values(), *tier["family_seg"].values(), *four["family_seg"].values(),
               *wide["family_seg"].values(), *large["family_seg"].values()]
-    # the two narrow family designs, device time alone, at the climbs' shapes
+    # the family narrow kernel at the climbs' shapes
     climb_shapes = {"alarm": family, "link": tier["family_seg"], "hepar2": large["family_seg"],
                     "hepar2_four_states": four["family_seg"]}
-    designs = {f"{where}_{key}": {"F": rec["F"], "U": rec["U"], "S": rec["S"],
-                                  "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
-                                  **rec["designs"]}
-               for where, recs in climb_shapes.items() for key, rec in recs.items()
-               if "designs" in rec}
-    resources = family_kernel_resources()
+    at_climb_shapes = {f"{where}_{key}": {k: rec[k] for k in (
+        "F", "U", "S", "cluster", "family_narrow_ms", "device_ms", "bound_ms", "bound_by")
+        if k in rec}
+        for where, recs in climb_shapes.items() for key, rec in recs.items()}
     errs = {"fused": [f["err"] for f in [*fused_stage.values(), *sachs.values(), four["fused"]]],
             "seg": [f["err"] for f in chunks]}
 
@@ -3538,8 +3344,7 @@ def kernel_records(search: dict, er: dict, decoded: dict, stage: dict, wide: dic
     def score_main(rec, inputs):
         return {"max_abs_err": score_err, "ms": rec["kernel_ms"], "plain_ms": rec["plain_ms"],
                 "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"], "inputs": inputs,
-                "bytes": rec["bytes"], "int_ops": rec["int_ops"],
-                "float_ops": rec.get("float_ops", 0.0)}
+                "bytes": rec["bytes"], "int_ops": rec["int_ops"], "float_ops": rec["float_ops"]}
 
     dec, barley = scored["decoded_population"], scored["barley_climb_chunk"]
     attn, link_attn = decoded["decode_attention"], tier["decode_attention"]
@@ -3565,23 +3370,17 @@ def kernel_records(search: dict, er: dict, decoded: dict, stage: dict, wide: dic
         record("node_scores_fused", score_main(dec, "decoded population"), None, {
             "library": "none: no one PyTorch call computes the counts and the scores",
             "tolerance": {"rtol": SCORE_RTOL, "atol": SCORE_ATOL, "between_launches": 0.0},
-            "held_calls": sum(h["score"] for h in helds),
-            "parent_path_ms": dec["parent_ms"], "entry_ms": dec["change_ms"],
-            "score_step_parent_ms": dec["step_parent_ms"],
-            "score_step_change_ms": dec["step_change_ms"],
+            "held_calls": sum(h["score"] for h in helds), "entry_ms": dec["entry_ms"],
             "at_inputs": {k: v for k, v in scored.items() if v["route"] == "narrow"},
-            "alarm_dense_climb": stage["climb_compare"], "ptxas": score_ptxas,
+            "ptxas": score_ptxas,
         }),
         record("node_scores_fused_wide", score_main(
             barley, f"dense climb chunk at barley width (R={barley['rows']}, S={barley['S']})"),
             None, {
                 "library": "none: no one PyTorch call computes the counts and the scores",
-                "tiles": barley["tiles"], "parent_path_ms": barley["parent_ms"],
-                "entry_ms": barley["change_ms"],
-                "score_step_parent_ms": barley["step_parent_ms"],
-                "score_step_change_ms": barley["step_change_ms"],
+                "tiles": barley["tiles"], "entry_ms": barley["entry_ms"],
                 "at_inputs": {k: v for k, v in scored.items() if v["route"] == "wide"},
-                "barley_dense_climb": wide["climb_compare"], "ptxas": score_ptxas,
+                "ptxas": score_ptxas,
             }),
         record("contingency_counts_fused", {
             "max_abs_err": max(er["err_fused"], decoded["err_fused"], *errs["fused"]),
@@ -3593,7 +3392,6 @@ def kernel_records(search: dict, er: dict, decoded: dict, stage: dict, wide: dic
             "narrow_max_bins": sweep["rule"]["fused"],
             "ms_er": er["fused_ms"], "plain_ms_er": er["fused_plain_ms"],
             "bound_ms_er": er["fused_bound_ms"],
-            "before_ms": decoded["before_ms"], "before_ms_er": er["before_ms"],
             "small_span_ms": decoded["small_span_ms"], "small_span_ms_er": er["small_span_ms"],
             "stage_climb_chunk": fused_stage["climb_chunk"],
             "stage_island_population": fused_stage["island_population"],
@@ -3615,38 +3413,21 @@ def kernel_records(search: dict, er: dict, decoded: dict, stage: dict, wide: dic
             + ")"), None, {
             "narrow_max_bins": sweep["rule"]["family"],
             "library": "none: no one PyTorch call computes the cells and the counts",
-            "bincount_on_cells_ms": first["bincount_ms"], "cells_ms": first["cells_ms"],
-            "cells_seg_ms": first["cells_seg_ms"],
+            "bincount_on_cells_ms": first["bincount_ms"],
             "design": "a family's unique rows split over a thread-block cluster, merged in "
                       "distributed shared memory",
-            "device_ms_at_climb_shapes": designs, "ptxas": resources["cluster"],
+            "at_climb_shapes": at_climb_shapes,
+            "ptxas": {k: v for k, v in ptxas_report().items() if "family_cluster_kernel" in k},
             "family_refresh": family["refresh"], "family_final_refresh": family["final"],
             "family_full_chunk": family["full"], "link_family": tier["family_seg"],
             "hepar2_family": large["family_seg"],
             "hepar2_four_state_family": four["family_seg"], "route_sweep": swept("family"),
         }),
-        record("contingency_counts_family_warp", {
-            "max_abs_err": max(f["err"] for f in chunks), "ms": first["family_warp_ms"],
-            "plain_ms": first["family_plain_ms"], "bound_ms": first["bound_ms"],
-            "bound_by": first["bound_by"],
-            "inputs": "delta climb's first frontier at alarm width (" + shape.format(**first)
-                      + "), timing calls only", "bytes": first["bytes"],
-            "int_ops": first["int_ops"],
-        }, None, {
-            "on_path": False,
-            "design": "one warp a family: the family narrow kernel before the cluster split, "
-                      "kept to time against",
-            "device_ms_at_climb_shapes": {k: {"warp_device_ms": v["warp_device_ms"],
-                                              "floor_ms": v["floor_ms"]}
-                                          for k, v in designs.items()},
-            "ptxas": resources["warp"],
-        }),
         record("contingency_counts_family_wide", family_main(
             wide_first, "wide", "delta climb's first frontier at barley width ("
             + shape.format(**wide_first) + ")"), None, {
             "library": "none: no one PyTorch call computes the cells and the counts",
-            "bincount_on_cells_ms": wide_first["bincount_ms"], "cells_ms": wide_first["cells_ms"],
-            "cells_seg_ms": wide_first["cells_seg_ms"],
+            "bincount_on_cells_ms": wide_first["bincount_ms"],
             "family_full_chunk": wide["family_seg"]["full"],
             "hepar2_four_state_ms": {k: v["family_wide_ms"] for k, v in four["family_seg"].items()},
         }),
@@ -3693,7 +3474,7 @@ def main() -> int:
     from dags_vae_search_tpu_torch.scoring.catalog import make_synthetic_problem
 
     t_start = time.perf_counter()
-    name, clock_hz = phase_device(torch)
+    name = phase_device(torch)
     cfg = REGISTRY["alarm"]
     _, dataset = make_synthetic_problem(
         cfg.name, num_cases=cfg.simulate_cases, max_card=cfg.simulate_max_card, seed=cfg.seed
@@ -3705,13 +3486,13 @@ def main() -> int:
         f"q_cap={scorer.q_cap}, r_max={scorer.r_max}"
     )
 
-    er = phase_kernels(torch, cfg, scorer, clock_hz)
+    er = phase_kernels(torch, cfg, scorer)
     t_sweep = time.perf_counter()
     sweep = phase_route_sweep(torch)
     print(f"route sweep {time.perf_counter() - t_sweep:.1f} s")
     phase_card_vs_cpu(torch, cfg, scorer, dataset)
     phase_train_card_vs_cpu(torch)
-    search, decoded = phase_search(torch, cfg, scorer, clock_hz)
+    search, decoded = phase_search(torch, cfg, scorer)
     print("search:", json.dumps(search))
     trainer, state, corpus, train_c, test_c, train = phase_train(torch, cfg)
     train["eval"] = phase_checkpoint_eval(torch, cfg, state.model, test_c)
@@ -3720,7 +3501,7 @@ def main() -> int:
     print("train:", json.dumps(train))
     t_stage = time.perf_counter()
     closure = phase_large_closure(torch)
-    stage = phase_search_stage(torch, cfg, scorer, dataset, state.model, test_c, clock_hz)
+    stage = phase_search_stage(torch, cfg, scorer, dataset, state.model, test_c)
     stage["large_closure"] = closure
     stage["seconds"] = time.perf_counter() - t_stage
     print("search_stage:", json.dumps(stage))
@@ -3746,7 +3527,7 @@ def main() -> int:
           f"phases 1-10 launches {narrow_total}")
 
     t_wide = time.perf_counter()
-    wide = phase_wide_rows(torch, scorer, clock_hz)
+    wide = phase_wide_rows(torch, scorer)
     wide["seconds"] = time.perf_counter() - t_wide
     print(f"wide_rows ({nvidia_smi('name,power.limit')}):", json.dumps(wide))
     launches_by_path.update({f"wide_{k}": v["launches"] for k, v in wide["steps"].items()})
@@ -3759,17 +3540,17 @@ def main() -> int:
     parallel["seconds"] = time.perf_counter() - t_dp
     print("data_parallel (one card, no multi-card number):", json.dumps(parallel))
     t_tier = time.perf_counter()
-    tier = phase_tier(torch, REGISTRY[TIER_NAME], clock_hz)
+    tier = phase_tier(torch, REGISTRY[TIER_NAME])
     tier["seconds"] = time.perf_counter() - t_tier
     print(f"tier ({nvidia_smi('name,power.limit')}):", json.dumps(tier))
     launches_by_path.update({f"tier_{k}": v["launches"] for k, v in tier["search"].items()})
     t_small = time.perf_counter()
-    small = phase_small_tier(torch, clock_hz)
+    small = phase_small_tier(torch)
     small["seconds"] = time.perf_counter() - t_small
     print(f"small_tier ({nvidia_smi('name,power.limit')}):", json.dumps(small))
     launches_by_path.update({f"small_{k}": v["launches"] for k, v in small["steps"].items()})
     t_large = time.perf_counter()
-    large = phase_large_tier(torch, clock_hz)
+    large = phase_large_tier(torch)
     large["seconds"] = time.perf_counter() - t_large
     print(f"large_tier ({nvidia_smi('name,power.limit')}):", json.dumps(large))
     launches_by_path.update({k: v["launches"] for k, v in large["steps"].items()})

@@ -83,9 +83,7 @@
 // counts in lane-private bins, the others in the block's shared atomics:
 // wider lane-private bins cost more in blocks per SM than they save in
 // collisions.  The bins are zeroed while warp 0 reads the family; four
-// multiplicities come in one 16-byte load beside the codes' one load.  The
-// warp-per-family kernel (contingency_counts_rows_kernel over FamilyRows)
-// stays for timing.
+// multiplicities come in one 16-byte load beside the codes' one load.
 //
 // Wide rows.  Each entry has a wide kernel with the same contract, which
 // ops/bic_kernel.py::route picks past the crossover measured on the H100
@@ -1043,18 +1041,6 @@ FamilyRows family_rows(const void* children, const void* parents, const void* ca
                     static_cast<const int32_t*>(cards), P};
 }
 
-// The warp-per-family kernel (small_span >= 0) or the wide one (-1).
-int launch_family(const void* children, const void* parents, const void* cards,
-                  const void* codes_cm, int code_bytes, const void* w, void* out, int64_t F,
-                  int P, int U, int ldc, int q_cap, int r_max, int small_span, void* stream) {
-  if (P < 1 || P > kWarp) return static_cast<int>(cudaErrorInvalidValue);
-  return launch_any(family_rows(children, parents, cards, P), codes_cm, code_bytes, w, out, F,
-                    Layout{U, ldc, q_cap, r_max}, small_span, static_cast<cudaStream_t>(stream));
-}
-
-// An empty kernel: the floor of one launch's device time.
-__global__ void empty_kernel() {}
-
 }  // namespace
 
 // C interfaces for ctypes.  All tensors contiguous on the current device;
@@ -1217,18 +1203,6 @@ extern "C" int contingency_counts_family_blocks_per_sm(int code_bytes, int S, in
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The family entry through the warp-per-family kernel (timing only): the
-// contract of contingency_counts_family_launch with one warp a family and its
-// lane-private bins up to small_span cells, the cluster aside.
-extern "C" int contingency_counts_family_warp_launch(const void* children, const void* parents,
-                                                     const void* cards, const void* codes_cm,
-                                                     int code_bytes, const void* w, void* out,
-                                                     int64_t F, int P, int U, int ldc, int q_cap,
-                                                     int r_max, int small_span, void* stream) {
-  return launch_family(children, parents, cards, codes_cm, code_bytes, w, out, F, P, U, ldc,
-                       q_cap, r_max, small_span < 0 ? 0 : small_span, stream);
-}
-
 // The wide route of the family entry: its contract for any S = q_cap*r_max
 // with F * ceil(S / 16384) blocks below 2^31.
 extern "C" int contingency_counts_family_wide_launch(const void* children, const void* parents,
@@ -1236,12 +1210,15 @@ extern "C" int contingency_counts_family_wide_launch(const void* children, const
                                                      int code_bytes, const void* w, void* out,
                                                      int64_t F, int P, int U, int ldc, int q_cap,
                                                      int r_max, void* stream) {
-  return launch_family(children, parents, cards, codes_cm, code_bytes, w, out, F, P, U, ldc,
-                       q_cap, r_max, -1, stream);
-}
-
-// One launch of an empty kernel (1 block of 32 threads): the launch floor.
-extern "C" int empty_kernel_launch(void* stream) {
-  empty_kernel<<<1, kWarp, 0, static_cast<cudaStream_t>(stream)>>>();
-  return static_cast<int>(cudaGetLastError());
+  if (P < 1 || P > kWarp) return static_cast<int>(cudaErrorInvalidValue);
+  const FamilyRows rows = family_rows(children, parents, cards, P);
+  const Layout g{U, ldc, q_cap, r_max};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (code_bytes == 1) {
+    return launch_rows_wide<FamilyRows, uint8_t>(rows, codes_cm, w, out, F, g, s);
+  }
+  if (code_bytes == 4) {
+    return launch_rows_wide<FamilyRows, int32_t>(rows, codes_cm, w, out, F, g, s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -21,9 +21,7 @@ S = q_cap * r_max cells.  Source of every kernel:
   (child, padded parent list) families, so the [F, U] cell table of
   :func:`family_cells` is never built.  ``FamilyBatchScorer`` (the delta
   climb's scorer) goes through it.  Its narrow kernel splits each family's
-  U rows over a thread-block cluster of :func:`family_cluster_size` blocks;
-  :func:`contingency_counts_family_warp` keeps the one-warp-a-family kernel
-  for timing (on no path).
+  U rows over a thread-block cluster of :func:`family_cluster_size` blocks.
 - :func:`contingency_counts_kernel` takes the cell table ready-made, the
   one-to-one counterpart of the Pallas kernel's contract.
 
@@ -236,14 +234,6 @@ def fused_warp_bytes(S: int, n: int) -> int:
     launcher computes it): S bins or 32 lane-private copies of SMALL_SPAN
     bins, and the row's parent list of n variables."""
     return 4 * _round_up(max(S, 32 * min(SMALL_SPAN, S)), 4) + 8 * n
-
-
-def family_warp_bytes(S: int, P: int) -> int:
-    """Shared memory one warp of the one-warp-a-family kernel
-    (:func:`contingency_counts_family_warp`) takes (as the launcher computes
-    it): the bins of :func:`fused_warp_bytes` and the family's parent list
-    of P slots."""
-    return fused_warp_bytes(S, 0) + 8 * P
 
 
 def family_block_bytes(S: int, P: int, private_span: int = FAMILY_PRIVATE_SPAN) -> int:
@@ -693,25 +683,6 @@ def _launch_family(children, parents, codes_cm, cards, w, q_cap, r_max, cluster=
                           (cluster, min(private_span, q_cap * r_max)), *args)
 
 
-def _launch_family_warp(children, parents, codes_cm, cards, w, q_cap, r_max,
-                        small_span=SMALL_SPAN):
-    """The one-warp-a-family kernel, lane-private bins up to ``small_span``
-    cells; no count."""
-    return _family_launch("contingency_counts_family_warp_launch", [ctypes.c_int], (small_span,),
-                          children, parents, codes_cm, cards, w, q_cap, r_max)
-
-
-def launch_floor(device) -> None:
-    """Launch an empty kernel (one block of 32 threads) on ``device``'s
-    current stream: the least device time of any launch, for timing."""
-    fn = _function("empty_kernel_launch", [ctypes.c_void_p])
-    device = torch.device(device)
-    with torch.cuda.device(device):
-        err = fn(torch.cuda.current_stream(device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"empty kernel launch failed: cudaError {err}")
-
-
 def contingency_counts_family(
     children: torch.Tensor,  # int32[F] in [0, n)
     parents: torch.Tensor,  # int32[F, P], P <= MAX_FAMILY_SLOTS, each < n; negative = empty slot
@@ -759,23 +730,6 @@ def contingency_counts_family_wide(children, parents, codes_cm, cards, w, q_cap,
 
 
 contingency_counts_family_wide.launches = 0
-
-
-def contingency_counts_family_warp(children, parents, codes_cm, cards, w, q_cap, r_max):
-    """:func:`contingency_counts_family`'s function through the
-    one-warp-a-family kernel (rows whose one warp's bins fit a block) on a
-    CUDA tensor, the plain version on a CPU tensor.  On no path: kept to
-    time the cluster kernel against.
-    ``contingency_counts_family_warp.launches`` counts its launches."""
-    _check_family(children, parents, codes_cm, cards, w, q_cap, r_max)
-    if children.device.type == "cpu":
-        return contingency_counts_family_plain(children, parents, codes_cm, cards, w, q_cap, r_max)
-    out = _launch_family_warp(children, parents, codes_cm, cards, w, q_cap, r_max)
-    contingency_counts_family_warp.launches += 1
-    return out
-
-
-contingency_counts_family_warp.launches = 0
 
 
 def contingency_counts(

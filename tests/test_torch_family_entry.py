@@ -247,7 +247,7 @@ def test_route_picks_the_constants_side(entry):
     wider ones the wide kernel; binary rows (S = 512) stay narrow."""
     def warp_bytes(S):
         return {"fused": bic_kernel.fused_warp_bytes(S, 70), "seg": bic_kernel.seg_warp_bytes(S),
-                "family": bic_kernel.family_warp_bytes(S, 9)}[entry]
+                "family": bic_kernel.family_block_bytes(S, 9)}[entry]
 
     limit = bic_kernel.NARROW_MAX_BINS[entry]
     assert 512 <= limit

@@ -152,7 +152,7 @@ def test_family_batch_rejects_bins_past_shared_memory():
     fb = tfb.FamilyBatchScorer(tds, max_parents=3, q_cap=q_cap, device="cpu")
     S = fb.q_cap * fb.r_max
     assert fb.r_max == 3 and bic_kernel.route("seg", S, bic_kernel.seg_warp_bytes(S)) == "wide"
-    assert bic_kernel.route("family", S, bic_kernel.family_warp_bytes(S, 4)) == "wide"
+    assert bic_kernel.route("family", S, bic_kernel.family_block_bytes(S, 4)) == "wide"
     children, parents = _families(6, 4, 4, seed=12, max_parents=3)
     got = fb.score(children, parents).numpy()
     want = np.asarray(jfb.FamilyBatchScorer(jds, max_parents=3, q_cap=q_cap).score(children, parents))

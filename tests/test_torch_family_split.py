@@ -169,24 +169,6 @@ def test_family_entry_rejects_other_weight_types():
     args = (*tfam._families(children, parents), tfam._codes_cm, tfam._cards)
     for w in (tfam._weights.double(), tfam._multiplicities.long()):
         for entry in (bic_kernel.contingency_counts_family,
-                      bic_kernel.contingency_counts_family_warp,
                       bic_kernel.contingency_counts_family_wide):
             with pytest.raises(TypeError):
                 entry(*args, w, tfam.q_cap, tfam.r_max)
-
-
-def test_warp_kernel_wrapper_runs_the_plain_version_on_the_cpu():
-    """The one-warp-a-family kernel's wrapper (on no path, kept for timing):
-    the plain version on CPU tensors, which is no launch."""
-    _, tds = _alarm(seed=3)
-    tfam = tfb.FamilyBatchScorer(tds, max_parents=8, device="cpu")
-    children, parents = _refresh_batch(tds.num_variables, 4, seed=1)
-    args = (*tfam._families(children, parents), tfam._codes_cm, tfam._cards,
-            tfam._multiplicities, tfam.q_cap, tfam.r_max)
-    before = (bic_kernel.contingency_counts_family_warp.launches,
-              bic_kernel.contingency_counts_family.launches)
-    got = bic_kernel.contingency_counts_family_warp(*args)
-    assert torch.equal(got, bic_kernel.contingency_counts_family_plain(*args))
-    assert torch.equal(got, bic_kernel.contingency_counts_family(*args))
-    assert (bic_kernel.contingency_counts_family_warp.launches,
-            bic_kernel.contingency_counts_family.launches) == before

@@ -632,16 +632,14 @@ def test_hepar2_four_states_both_routes_of_both_entries_equal_plain(cuda, hepar2
 
 def _family_counts():
     return (bic_kernel.contingency_counts_family.launches,
-            bic_kernel.contingency_counts_family_wide.launches,
-            bic_kernel.contingency_counts_family_warp.launches)
+            bic_kernel.contingency_counts_family_wide.launches)
 
 
 def _check_family_routes(cuda, card_fam, cpu_fam, children, parents):
     """The family entry's narrow kernel (launched directly at each cluster
     size and three lane-private spans, where its block fits, and once with
-    float32 weights), the one-warp-a-family kernel (three lane-private
-    spans, where one warp's bins fit a block), its wide kernel and its own
-    route, each equal to the plain version bit for bit."""
+    float32 weights), its wide kernel and its own route, each equal to the
+    plain version bit for bit."""
     S = cpu_fam.q_cap * cpu_fam.r_max
     P = parents.shape[1]
     cpu_args = (*cpu_fam._families(children, parents), cpu_fam._codes_cm, cpu_fam._cards,
@@ -651,7 +649,6 @@ def _check_family_routes(cuda, card_fam, cpu_fam, children, parents):
     want = bic_kernel.contingency_counts_family_plain(*cpu_args)
     need = bic_kernel.family_block_bytes(S, P)
     wide_route = bic_kernel.route("family", S, need) == "wide"
-    warp_fits = bic_kernel.family_warp_bytes(S, P) <= bic_kernel.MAX_SHARED_BYTES
     before = _family_counts() + _launch_counts()
     got = [bic_kernel.contingency_counts_family(*args),
            bic_kernel.contingency_counts_family_wide(*args)]
@@ -659,15 +656,11 @@ def _check_family_routes(cuda, card_fam, cpu_fam, children, parents):
         got += [bic_kernel._launch_family(*args, cluster=c, private_span=span)
                 for c in bic_kernel.FAMILY_CLUSTER_SIZES for span in (0, 16, 64)]
         got.append(bic_kernel._launch_family(*args[:4], card_fam._weights, *args[5:]))
-    if warp_fits:
-        got += [bic_kernel._launch_family_warp(*args, small_span=span) for span in (0, 16, 64)]
-        got.append(bic_kernel.contingency_counts_family_warp(*args))
     torch.cuda.synchronize()
     for counts in got:
         assert torch.equal(counts.cpu(), want)
     assert _family_counts() + _launch_counts() == (
-        before[0] + (not wide_route), before[1] + 1 + wide_route, before[2] + warp_fits,
-        *before[3:])
+        before[0] + (not wide_route), before[1] + 1 + wide_route, *before[2:])
     assert float(want.sum()) == cpu_fam.num_cases * len(children)
 
 

@@ -429,7 +429,7 @@ def test_four_state_bic_scorer_counts_and_scores_match_jax(four_states):
     # measured on the H100)
     assert bic_kernel.route("fused", S, bic_kernel.fused_warp_bytes(S, N)) == "wide"
     assert bic_kernel.route("seg", S, bic_kernel.seg_warp_bytes(S)) == "wide"
-    assert bic_kernel.route("family", S, bic_kernel.family_warp_bytes(S, 9)) == "wide"
+    assert bic_kernel.route("family", S, bic_kernel.family_block_bytes(S, 9)) == "wide"
     _, adj = jsampler.sample_connected_dags(np.random.default_rng(8), 8, N, 123, N,
                                             max_in_degree=max_parents)
     got, got_q = scorer.counts(adj)

@@ -198,11 +198,11 @@ def test_score_entry_rejects_bad_inputs(change, err):
         bic_kernel.node_scores_fused(**args)
 
 
-# Where chip_smoke.py's dense climbs part between the scorer's path before
-# the score entry (the fused entry's counts reduced in torch) and the score
-# entry on the card (scripts/trace_climb_parting.py): the graph before the
-# step (edges u -> v), the states its data was simulated with, and the edge
-# the earlier path added (the score entry added its reversal).
+# Where the card's dense climbs parted between the scorer's path before the
+# score entry (the fused entry's counts reduced in torch) and the score
+# entry (alarm in the search stage, barley at 16 states): the graph before
+# the step (edges u -> v), the states its data was simulated with, and the
+# edge the earlier path added (the score entry added its reversal).
 PARTINGS = {
     "alarm-phase9-step27": ("alarm", 2, [
         (0, 26), (0, 32), (1, 32), (3, 4), (4, 2), (4, 30), (5, 15), (6, 14), (7, 35), (9, 19),

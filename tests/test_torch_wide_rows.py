@@ -91,7 +91,7 @@ def test_family_batch_scorer_counts_wide_rows_as_jax():
     S = tscorer.q_cap * tscorer.r_max
     assert (tscorer.q_cap, tscorer.r_max, S) == (jscorer.q_cap, jscorer.r_max, 65_536)
     assert bic_kernel.route("seg", S, bic_kernel.seg_warp_bytes(S)) == "wide"
-    assert bic_kernel.route("family", S, bic_kernel.family_warp_bytes(S, max_parents + 1)) \
+    assert bic_kernel.route("family", S, bic_kernel.family_block_bytes(S, max_parents + 1)) \
         == "wide"
     children, parents = _families(8, 36, max_parents + 1, seed=1, max_parents=max_parents)
 
