@@ -39,7 +39,9 @@ order; any failure exits non-zero:
    against its plain version on the same inputs (``DECODE_RTOL``), each
    timed beside it and its bound.  Here and in phases 7, 9, 10, 13, 14 and
    16 every path that decodes reads the kernel's launches from its own run:
-   whole decodes, 2 x layers x (max_n - 1) launches each;
+   whole decodes, 2 x layers x (max_n - 1) launches each, counted in a
+   device trace of the run where a decode may replay its CUDA graphs (which
+   run the kernel without its wrapper), else a positive wrapper count;
 5. training — the alarm registry experiment (16,260,634 parameters, its
    ``TrainConfig`` as the registry gives it) on a corpus from
    ``generate_corpus`` with one cut (corpus batch 8 instead of 64), split
@@ -219,6 +221,7 @@ import dataclasses
 import io
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -798,13 +801,42 @@ def _counters() -> dict:
             "contingency_counts_family_wide": bic_kernel.contingency_counts_family_wide}
 
 
-def reset_launches() -> None:
+#: the decode-attention kernels by name in a device trace (the register
+#: kernel's instances and the kernel for any d_head)
+DECODE_KERNEL = re.compile(r"\bdecode_attention(_any)?_kernel\b")
+
+_decode_trace: list = []
+
+
+def reset_launches(trace_decodes: bool = False) -> None:
+    """Zero every wrapper's count.  With ``trace_decodes``, also start a
+    device trace, from which the next :func:`read_launches` counts the
+    decode-attention kernels the card ran: a decode that replays its CUDA
+    graphs runs them without the wrapper, which counts its own launches."""
     for fn in _counters().values():
         fn.launches = 0
+    if trace_decodes:
+        from torch.profiler import ProfilerActivity, profile
+
+        prof = profile(activities=[ProfilerActivity.CUDA])
+        prof.start()
+        _decode_trace.append(prof)
 
 
 def read_launches() -> dict:
-    return {name: fn.launches for name, fn in _counters().items()}
+    """Each wrapper's launches since :func:`reset_launches`; the decode
+    attention's from the device trace where that started one."""
+    launches = {name: fn.launches for name, fn in _counters().items()}
+    if _decode_trace:
+        import torch
+
+        prof = _decode_trace.pop()
+        torch.cuda.synchronize()
+        prof.stop()
+        launches["decode_attention"] = sum(
+            1 for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA and DECODE_KERNEL.search(e.name))
+    return launches
 
 
 def bic_launches(launches: dict) -> int:
@@ -819,8 +851,8 @@ def decode_calls(model) -> int:
 
 
 def check_decodes(launches: dict, model, label: str, decodes: int | None = None) -> None:
-    """A path's decode-attention launches are ``decodes`` whole decodes (a
-    positive number of them where None)."""
+    """A path's decode-attention launches, read from its device trace, are
+    ``decodes`` whole decodes (a positive number of them where None)."""
     got, per = launches["decode_attention"], decode_calls(model)
     ok = got == decodes * per if decodes is not None else got > 0 and got % per == 0
     check(ok, f"{label}: {got} decode-attention launches, want "
@@ -837,9 +869,10 @@ def hold_decode(torch, model, rows: int, label: str, max_in_degree: int | None =
     it must move (its admitted keys and values, the query, the mask column,
     the output).  The decode goes on with the kernel's outputs.  Totals by
     cache layout: the self-attention buffer and the memory's keys and
-    values."""
+    values.  The decode runs over a workspace of its own, which captures no
+    CUDA graph, so that its slot functions launch each kernel directly."""
     from dags_vae_search_tpu_torch.models import transformer
-    from dags_vae_search_tpu_torch.models.decode import decode_to_labeled
+    from dags_vae_search_tpu_torch.models.decode import DecodeWorkspace
     from dags_vae_search_tpu_torch.ops import decode_attention as da
     from h100_bench import peaks
 
@@ -877,12 +910,17 @@ def hold_decode(torch, model, rows: int, label: str, max_in_degree: int | None =
     gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
     z = torch.randn((rows, model.latent_size), generator=gen, device="cuda")
     before = da.decode_attention.launches
+    workspace = DecodeWorkspace(model, rows, z.device, True, 1.0, max_in_degree)
+    workspace.load(z, 1.0)
+    was_training = model.training
     transformer.decode_attention = held
     try:
-        decode_to_labeled(model, z, gen, max_in_degree=max_in_degree)
+        with torch.no_grad():
+            workspace.run(model.eval(), gen)
         torch.cuda.synchronize()
     finally:
         transformer.decode_attention = kernel
+        model.train(was_training)
     calls = da.decode_attention.launches - before
     check(calls == decode_calls(model) == sum(r["calls"] for r in layouts.values()),
           f"{label}: {calls} decode-attention launches, want {decode_calls(model)}")
@@ -947,7 +985,7 @@ def phase_search(torch, cfg, scorer) -> tuple:
     score = scorer.score
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
-    reset_launches()
+    reset_launches(trace_decodes=True)
     with held_launches(torch, ALARM_HOLD_CANDIDATES) as held:
         def stamped_score(adj):
             out = score(adj)
@@ -985,7 +1023,7 @@ def phase_search(torch, cfg, scorer) -> tuple:
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     z = torch.randn((pop, model.latent_size), generator=gen, device="cuda")
     torch.cuda.synchronize()
-    reset_launches()
+    reset_launches(trace_decodes=True)
     t0 = time.perf_counter()
     recon, valid = decode_to_labeled(
         model, z, gen, max_in_degree=scorer.max_parents
@@ -1141,7 +1179,7 @@ def phase_train_search(torch, cfg, scorer, model) -> dict:
 
     pop = cfg.search.cem_population
     torch.cuda.synchronize()
-    reset_launches()
+    reset_launches(trace_decodes=True)
     t0 = time.perf_counter()
     result = cem_search(model, scorer, seed=SEED, iters=1, population=pop, device="cuda")
     torch.cuda.synchronize()
@@ -1564,7 +1602,7 @@ def phase_search_stage(torch, cfg, scorer, dataset, model, test_c) -> dict:
     def step(name, fn, exact_of=None, evals=None, **extra):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        reset_launches()
+        reset_launches(trace_decodes=name in LATENT_STEPS)
         with held_launches(torch, ALARM_HOLD_CANDIDATES) as held:
             t0 = time.perf_counter()
             res = fn()
@@ -1898,7 +1936,6 @@ def _dp_islands(model_kwargs: dict, codes, cards, max_parents: int, mesh=None) -
     import torch
 
     from dags_vae_search_tpu_torch.models.pace_vae import make_model
-    from dags_vae_search_tpu_torch.ops import decode_attention
     from dags_vae_search_tpu_torch.scoring.bic import BicScorer
     from dags_vae_search_tpu_torch.scoring.datasets import DiscreteDataset
     from dags_vae_search_tpu_torch.search.islands import island_cem_search
@@ -1908,14 +1945,15 @@ def _dp_islands(model_kwargs: dict, codes, cards, max_parents: int, mesh=None) -
                        max_parents=max_parents, device=dev)
     model = make_model(SEED, dev, **model_kwargs)
     torch.cuda.synchronize(dev)
-    decode_attention.decode_attention.launches = 0
+    reset_launches(trace_decodes=True)
     t0 = time.perf_counter()
     res = island_cem_search(model, scorer, seed=SEED,
                             num_islands=DP_ISLANDS, population=DP_POPULATION, iters=DP_ITERS,
                             temperature_range=(1e-3, 1e-3), device=dev, mesh=mesh)
     torch.cuda.synchronize(dev)
-    return {**res._asdict(), "seconds": time.perf_counter() - t0,
-            "decode_launches": decode_attention.decode_attention.launches,
+    seconds = time.perf_counter() - t0
+    return {**res._asdict(), "seconds": seconds,
+            "decode_launches": read_launches()["decode_attention"],
             "decode_calls": decode_calls(model)}
 
 
@@ -2521,7 +2559,7 @@ def phase_tier(torch, cfg) -> dict:
 
         def step(name, fn):
             torch.cuda.synchronize()
-            reset_launches()
+            reset_launches(trace_decodes=name in ("decode_and_score", "island_cem"))
             with held_launches(torch) as held:
                 t0 = time.perf_counter()
                 res = fn()

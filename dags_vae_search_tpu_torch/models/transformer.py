@@ -191,12 +191,14 @@ class DecoderLayer(nn.Module):
     def begin_decode(self, memory: torch.Tensor) -> tuple:
         """What a decode that runs one position at a time keeps for this layer
         (:meth:`step`): an empty buffer for the self-attention keys and values
-        [B, H, N, 2, d_head], the memory's cross-attention keys and values,
-        and the key and value projections' weights stacked, rounded to
-        ``matmul_dtype``, with their biases."""
+        [B, H, N - 1, 2, d_head] (a decode runs positions 0 .. N - 2), the
+        memory's cross-attention keys and values, and the key and value
+        projections' weights stacked, rounded to ``matmul_dtype``, with their
+        biases."""
         b, n, d_model = memory.shape
         sa = self.self_attn
-        kv = torch.empty((b, sa.num_heads, n, 2, d_model // sa.num_heads), device=memory.device)
+        kv = torch.empty((b, sa.num_heads, n - 1, 2, d_model // sa.num_heads),
+                         device=memory.device)
         w = round_operand(torch.cat([sa.k_proj.weight, sa.v_proj.weight]), sa.matmul_dtype)
         return (kv, self.cross_attn.keys_values(memory), w,
                 torch.cat([sa.k_proj.bias, sa.v_proj.bias]))

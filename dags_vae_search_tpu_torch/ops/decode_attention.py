@@ -10,7 +10,7 @@ column: 1 for an ancestor, 0 for the rest) says so, and itself always.
 
 - ``q`` [B, H·d], the projected query, rounded to ``matmul_dtype``;
 - ``k``, ``v`` [B, H, L, d], views of the cache with any strides whose last
-  is 1: the self-attention buffer [B, H, N, 2, d] (a position's key and
+  is 1: the self-attention buffer [B, H, N - 1, 2, d] (a position's key and
   value side by side) or the memory's keys and values [B, H, N, d];
 - ``mask`` [B, L], a view of the reach column (its last entry is not read);
 
@@ -26,7 +26,9 @@ tensors' alignment); on a CPU tensor it runs the plain version,
 :func:`decode_attention_plain` (baddbmm, softmax, bmm: the arithmetic the
 decode had before the kernel, so CPU decodes stay bit-equal to a decode
 that recomputes every position).  ``decode_attention.launches`` counts
-kernel launches.
+kernel launches: not a launch captured into a CUDA graph, whose replays run
+the kernel without the wrapper (``models/decode.py``; a device trace counts
+those).
 
 :func:`round_operand` and ``BLOCKED`` live here for
 ``models/transformer.py`` too, so that ``MultiHeadAttention.forward``, the
@@ -133,7 +135,8 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: to
     if q.device.type == "cpu":
         return decode_attention_plain(q, k, v, mask, matmul_dtype)
     out = _launch(q, k, v, mask, matmul_dtype)
-    decode_attention.launches += 1
+    if not torch.cuda.is_current_stream_capturing():
+        decode_attention.launches += 1
     return out
 
 

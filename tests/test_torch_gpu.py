@@ -1066,3 +1066,179 @@ def test_alarm_decode_attends_through_the_kernel(cuda):
         torch.cuda.synchronize()
     assert decode_attention.decode_attention.launches - before == 2 * 4 * 39
     assert "aten::baddbmm" not in {e.name for e in prof.events()}
+
+
+# The decode's CUDA graphs (``models/decode.py``): a decode through
+# ``sample_decode`` replays the graphs its workspace captured in its first
+# call; a workspace made apart and run by hand has no graphs and calls the
+# same slot functions directly.  Replays must give the direct calls' bits.
+GRAPH_WIDTHS = {
+    "alarm": dict(num_real_vertices=37, real_label_cardinality=37, embed_size=64, num_layers=4,
+                  latent_size=896, fc_hidden=64, edge_readout=True),
+    "hepar2": dict(num_real_vertices=70, real_label_cardinality=70, embed_size=64,
+                   num_layers=4, latent_size=1792, fc_hidden=64, edge_readout=True,
+                   edge_readout_rank=64),
+}
+
+
+@pytest.fixture(scope="module")
+def graph_models():
+    """The model at each width of ``GRAPH_WIDTHS``, made at first use."""
+    models = {}
+
+    def get(name):
+        if name not in models:
+            models[name] = pace_vae.make_model(0, "cuda", **GRAPH_WIDTHS[name]).eval()
+        return models[name]
+
+    return get
+
+
+def _direct_decode(model, z, generator, temperature, max_in_degree):
+    ws = decode.DecodeWorkspace(model, z.shape[0], z.device, True, temperature, max_in_degree)
+    ws.load(z, temperature)
+    with torch.no_grad():
+        return ws.run(model, generator)
+
+
+def _graphed_and_direct(model, z, seed, temperature=1.0, max_in_degree=8):
+    """(the graphed decode, the direct one, their generators afterwards)."""
+    gens = [torch.Generator(z.device).manual_seed(seed) for _ in range(2)]
+    got = decode.sample_decode(model, z, gens[0], temperature=temperature,
+                               max_in_degree=max_in_degree)
+    want = _direct_decode(model, z, gens[1], temperature, max_in_degree)
+    return got, want, gens
+
+
+def _counts_of(fn):
+    """The program's counters over ``fn()`` (a profiler session turns them
+    on), with the decode-attention kernels the card ran, from the session's
+    device trace, under ``"attention_kernels"``."""
+    import re
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from dags_vae_search_tpu_torch.utils import profiling
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    counts = dict(profiling.snapshot()["counts"])
+    kernel = re.compile(r"\bdecode_attention(_any)?_kernel\b")
+    counts["attention_kernels"] = sum(
+        1 for e in prof.events()
+        if e.device_type == torch.autograd.DeviceType.CUDA and kernel.search(e.name))
+    return out, counts
+
+
+@pytest.mark.parametrize("max_in_degree", [8, None])
+@pytest.mark.parametrize("temperature", [1.0, 0.25, 0.1, 1e-4])
+@pytest.mark.parametrize("rows", [256, 4096])
+@pytest.mark.parametrize("widths", sorted(GRAPH_WIDTHS))
+def test_graphed_decode_equals_direct_calls(cuda, graph_models, widths, rows, temperature,
+                                            max_in_degree):
+    """Three calls in a row, other latents and generators (the first calls
+    the slot functions directly and captures, the others replay): labels,
+    adjacency and finished bit-equal to the slot functions called directly,
+    and the generators left alike."""
+    model = graph_models(widths)
+    for call in range(3):
+        z = torch.randn(rows, model.latent_size, device=cuda,
+                        generator=torch.Generator(cuda).manual_seed(10 + call))
+        got, want, gens = _graphed_and_direct(model, z, 20 + call, temperature, max_in_degree)
+        for name, g, w in zip(("labels", "adj", "finished"), got, want):
+            assert torch.equal(g, w), (call, name)
+        assert torch.equal(gens[0].get_state(), gens[1].get_state())
+    key = decode.workspace_key(model, z, True, temperature, max_in_degree)
+    assert decode._workspaces[model][key].graphs is not None
+
+
+def test_a_second_call_replays_without_capturing_and_counts_its_launches(cuda):
+    """The first call decodes directly (its wrapper counts each launch) and
+    captures (no launch); the second replays: the card runs the kernel
+    2 x 4 x 39 times (its device trace), and the wrapper counts nothing."""
+    model = pace_vae.make_model(2, cuda, **GRAPH_WIDTHS["alarm"]).eval()
+    z = torch.randn(256, model.latent_size, device=cuda,
+                    generator=torch.Generator(cuda).manual_seed(0))
+    gen = torch.Generator(cuda).manual_seed(1)
+    launches = decode_attention.decode_attention
+    for call, (captures, graph_rows, wrapper) in enumerate([(1, 0, 2 * 4 * 39), (0, 256, 0)]):
+        before = launches.launches
+        _, counts = _counts_of(lambda: decode.sample_decode(model, z, gen, max_in_degree=8))
+        assert launches.launches - before == wrapper, call
+        assert counts["attention_kernels"] == 2 * 4 * 39, call
+        assert counts.get("decode.graph_captures", 0) == captures, call
+        assert counts["decode.graph_rows"] == graph_rows and counts["decode.rows"] == 256, call
+
+
+def test_replays_read_weights_changed_in_place_and_a_replaced_one_recaptures(cuda):
+    """A weight changed in place is what the next replay reads; a parameter
+    replaced by another tensor moves the decode to a new capture, which
+    reads the new one."""
+    model = pace_vae.make_model(1, cuda, **GRAPH_WIDTHS["alarm"]).eval()
+    z = torch.randn(256, model.latent_size, device=cuda,
+                    generator=torch.Generator(cuda).manual_seed(0))
+    first, _, _ = _graphed_and_direct(model, z, 5)
+    g = torch.Generator(cuda).manual_seed(6)
+    with torch.no_grad():
+        model.add_node_out.bias.add_(4.0 * torch.randn(model.add_node_out.bias.shape,
+                                                       device=cuda, generator=g))
+    (got, want, _), counts = _counts_of(lambda: _graphed_and_direct(model, z, 5))
+    assert counts.get("decode.graph_captures", 0) == 0 and counts["decode.graph_rows"] == 256
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert not torch.equal(got[0], first[0])
+
+    bias = model.add_node_out.bias.detach()
+    model.add_node_out.bias = torch.nn.Parameter(
+        bias + 4.0 * torch.randn(bias.shape, device=cuda, generator=g))
+    (again, want, _), counts = _counts_of(lambda: _graphed_and_direct(model, z, 5))
+    assert counts["decode.graph_captures"] == 1 and counts["decode.graph_rows"] == 0
+    assert all(torch.equal(a, b) for a, b in zip(again, want))
+    assert not torch.equal(again[0], got[0])
+
+
+@pytest.mark.parametrize("temperature", [1.0, 0.25, 0.1, 1e-4])
+def test_inv_t_as_a_card_tensor_has_the_python_scalar_s_bits(cuda, temperature):
+    g = torch.Generator(cuda).manual_seed(0)
+    x = torch.randn(1 << 16, device=cuda, generator=g) * 100.0
+    ws = decode.DecodeWorkspace(pace_vae.make_model(0, cuda, **GRAPH_WIDTHS["alarm"]), 1, cuda,
+                                True, temperature, None)
+    ws.load(torch.zeros(1, 896, device=cuda), temperature)
+    assert torch.equal(x * ws.inv_t, x * (1.0 / max(temperature, 1e-3)))
+
+
+def test_a_model_keeps_its_last_workspaces_and_frees_them_with_it(cuda):
+    """Decodes at six batch sizes keep the model's ``MAX_WORKSPACES`` used
+    last (one used again stays, not captured anew); dropping the model frees
+    its workspaces: their tensors go, and the memory they held but a
+    remainder (the libraries keep a workspace for each stream a capture
+    used) is free again."""
+    import gc
+    import weakref
+
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    model = pace_vae.make_model(3, cuda, **GRAPH_WIDTHS["alarm"]).eval()
+    with_model = torch.cuda.memory_allocated()
+    gen = torch.Generator(cuda).manual_seed(0)
+
+    def decode_rows(rows):
+        z = torch.randn(rows, model.latent_size, device=cuda, generator=gen)
+        return _counts_of(lambda: decode.sample_decode(model, z, gen, max_in_degree=8))[1]
+
+    for rows in (1024, 1536, 2048, 2560, 3072, 3584):
+        assert decode_rows(rows)["decode.graph_captures"] == 1
+    assert [key[0] for key in decode._workspaces[model]] == [2048, 2560, 3072, 3584]
+    counts = decode_rows(2048)
+    assert counts.get("decode.graph_captures", 0) == 0 and counts["decode.graph_rows"] == 2048
+    assert decode_rows(4096)["decode.graph_captures"] == 1
+    assert [key[0] for key in decode._workspaces[model]] == [3072, 3584, 2048, 4096]
+    kept = [weakref.ref(ws.labels) for ws in decode._workspaces[model].values()]
+    held = torch.cuda.memory_allocated() - with_model
+    assert held > 2**29
+    del model
+    gc.collect()
+    torch.cuda.synchronize()
+    assert all(ref() is None for ref in kept)
+    assert torch.cuda.memory_allocated() - base < held / 4
